@@ -35,7 +35,7 @@ def run_ctm(reps=None):
 
     K = int(os.environ.get("BENCH_K", 50))
     iters = int(os.environ.get("BENCH_ITERS", 3))
-    chunk = int(os.environ.get("BENCH_CHUNK", 2048))  # CTM best (0.57 vs 0.77 s/iter at 1024)
+    chunk = int(os.environ.get("BENCH_CHUNK", 2048))  # api's CTM default
     M = int(os.environ.get("BENCH_M", 128_804))
     if reps is None:
         reps = int(os.environ.get("BENCH_REPS", 3))

@@ -1,12 +1,11 @@
-"""The last attributed f32 training-noise lever, measured (VERDICT r4 #2).
+"""The f32 training-noise lever of the per-doc digamma channel, measured.
 
-Round 4's accounting (RESULTS.md "tol=1.0 semantics") attributed the
-residual f32 training wobble to the per-doc gamma → Elogtheta digamma
-channel.  Round 5 built the lever — ``RuntimeConfig.elogtheta_f64``
+The residual f32 training wobble at the tol=1.0 stop comes from the
+per-doc gamma → Elogtheta digamma channel.  ``RuntimeConfig.elogtheta_f64``
 promotes exactly that [B, K] channel to f64 with f32 cast-back
-(models/lda.py) — and this script measures the A/B the round-4 item
-prescribes: planted-topic corpus at NSF scale, tol=1.0, checkelbo=1,
-400-iteration ceiling, on the real chip.  Reported per arm:
+(models/lda.py); this script measures the A/B: planted-topic corpus at
+NSF scale, tol=1.0, checkelbo=1, 400-iteration ceiling, on the card.
+Reported per arm:
 
   * stop iteration (where the reference's tol=1.0 early stop fires)
   * first negative ∆elbo (iteration + magnitude — the noise firing)

@@ -6,19 +6,18 @@ N-virtual-device CPU mesh: each device gets a fixed per-device document
 load, so perfect scaling keeps step time flat (efficiency = t1 / tN).
 
 This validates the collective structure (psum'd sufficient statistics,
-sharded per-doc state) — the only part of multi-chip behaviour a
-single-TPU environment can exercise.  CAVEAT: virtual CPU devices
-time-share the host's physical cores, so on a 1-core host the reported
-"efficiency" measures core contention, not collective overhead — the
-numbers are only meaningful with >= N real cores or on an actual pod
-slice (set SCALING_PLATFORM=tpu and run with real devices).
+sharded per-doc state).  CAVEAT: virtual CPU devices time-share the
+host's physical cores, so on a 1-core host the reported "efficiency"
+measures core contention, not collective overhead — the numbers are
+only meaningful with >= N real cores or on real devices (set
+SCALING_PLATFORM=gpu on a multi-GPU host).
 
 Multi-process mode (SCALING_NPROC=2): the same measurement across REAL
 process boundaries — N OS processes × (8/N) virtual devices each, a
 global 8-device mesh through jax.distributed, per-process data
 placement, and cross-process sufficient-statistic psums — so the
 collective structure is exercised where the in-process virtual mesh
-cannot exercise it (VERDICT r1).  Same caveat: on a 1-core host the
+cannot exercise it.  Same caveat: on a 1-core host the
 numbers measure core contention.
 
 Prints one JSON line per mesh size plus a summary line.

@@ -1,4 +1,4 @@
-"""Pack-time vocab-sorted layout: the closing measurement (round 4).
+"""Pack-time vocab-sorted layout against the doc-major production layout.
 
 The last proposed lever against the LDA scatter floor (ROADMAP) was a
 pack-time vocab-sorted chunk layout — the host-side analogue of the
@@ -8,13 +8,9 @@ per token slot (beta by vocab id, Elogtheta by doc id); the production
 doc-major layout gets the doc side for free (broadcast), so the sorted
 layout can only win if sorted gathers/scatters beat random ones by ~2x.
 
-Measured here on the v5e (6.29M rows x 128 lanes, V=25,319, value-fetch
-synced, median of 5): sortedness is worth nothing on the gather
-(20.5 vs 20.8 ms) and makes the segment_sum 26% SLOWER (47.4 vs
-59.9 ms); the indices_are_sorted hint changes neither.  Lever closed —
-see ROADMAP.md for the full argument.
+Not yet measured on the H100 (ROADMAP 1.2).
 
-Run: python bench_scatter_pack.py   (real chip; ~2 min)
+Run: python bench_scatter_pack.py   (on the card)
 """
 import json
 import os

@@ -89,12 +89,12 @@ print(f"B sorted full     : {tb*1e3:8.2f} ms  ({tok/tb/1e6:.1f} Mtok/s)")
 print(f"C sorted truncated: {tc*1e3:8.2f} ms  ({NCHUNK*T_keep/tc/1e6:.1f} Mtok/s eff)")
 
 
-# ── variant D: MXU one-hot dedup over variable-size sorted groups ──
+# ── variant D: one-hot matmul dedup over variable-size sorted groups ──
 # NOTE: this is a *performance* prototype. Its padding path is knowingly
 # incomplete (group padding gathers slot p[0]/p[-1], which may be a real
 # token, so the result differs from A) — fixing it adds no row traffic,
-# so the timing is representative.  D measured a wash vs A, so it was
-# never productionised; see ROADMAP.md for the full refutation table.
+# so the timing is representative.  D was never productionised; it is
+# not yet measured on the H100 (ROADMAP 1.2).
 GT, UD = 512, 128  # tokens per group, distinct-id cap per group
 
 def build_groups(ids, cnt):

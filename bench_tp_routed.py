@@ -1,8 +1,7 @@
-"""Routed vocab-TP: per-device step cost, measured on the real chip.
+"""Routed vocab-TP: per-device step cost, measured on one card.
 
-Round 5 closed the "when does vocab-TP pay in TIME" question for the
-all-gather TP design (RESULTS.md "Large-V": ~7% at V=4M — a storage
-lever).  Routed TP (ops/packing.route_packed + models/lda.make_step
+The all-gather TP design shards beta storage only (a memory lever, not
+a time lever).  Routed TP (ops/packing.route_packed + models/lda.make_step
 ``vocab_routed``) is the design that divides the per-device *work*:
 each device owns a contiguous [V/n, K] beta block and receives exactly
 the token slots that block serves, so the E-step gather table, the stat
@@ -10,8 +9,7 @@ scatter, and the M-step normalize are all O(V/n) per device and beta is
 never all-gathered.  Added communication: a [B, K] psum per viter
 iteration (the seq-axis pattern) + one [K] row-sum psum per sweep.
 
-One real chip is available, so this measures the honest single-chip
-surrogate: the WORST-fill shard's per-device program (its local vocab
+On one card this measures the single-card surrogate: the WORST-fill shard's per-device program (its local vocab
 block + its routed token slots, every doc) executed standalone, vs the
 full unrouted step at the same V.  The surrogate is compute-exact for
 the per-device program (the doc-level work is replicated in both); the

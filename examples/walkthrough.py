@@ -16,8 +16,8 @@ published scale against the real vocabularies — see datasets.py):
   9. beyond-memory streaming + one-pass online SVI (no reference equivalent)
  10. HMTM: the reference's unfinished model, working (HMTM/HMTMREADME.md)
 
-Run: python examples/walkthrough.py       (~3-5 min on a TPU chip;
-set JAX_PLATFORMS=cpu + small sizes for a laptop run)
+Run: python examples/walkthrough.py       (on a GPU; set
+JAX_PLATFORMS=cpu + small sizes for a laptop run)
 """
 
 import os

@@ -1,5 +1,5 @@
 """Worker for the MULTI-PROCESS SIGKILL fault-injection test (SURVEY
-§5.3's "kill-a-host" bar; VERDICT r2 #1).
+§5.3's "kill-a-host" bar).
 
 Two modes:
 

@@ -1,6 +1,6 @@
 """NumPy oracle: direct float64 transliterations of the reference CPU
 algorithms (per-doc sweeps, per-doc viter break), used to validate the
-batch-synchronous TPU implementations update-by-update.
+batch-synchronous device implementations update-by-update.
 
 Each function cites the reference equation it implements.  These are
 *oracles*, not the product: deliberately naive, loop-heavy, and slow.

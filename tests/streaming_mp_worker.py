@@ -1,4 +1,4 @@
-"""Worker for the multi-controller STREAMING tests (VERDICT r3 #1,
+"""Worker for the multi-controller STREAMING tests (
 r4 #4/#5).
 
 Launched by tests/test_streaming_multiprocess.py as N OS processes.

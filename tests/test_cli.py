@@ -129,29 +129,26 @@ def test_cli_streaming_dtm_trains_and_checkpoints(tmp_path):
     assert o["mode"] == "online" and np.isfinite(o["final_elbo"])
 
 
-def test_bench_assert_gate_logic(monkeypatch, capsys):
-    """bench.py --assert exits nonzero when any metric misses its floor
-    and passes silently when all clear (gate logic only — the real
-    measurements run on the chip)."""
+def test_bench_ab_order_alternates():
+    """The kernel-vs-XLA A/B runs its arms in turns (A B B A A B ...), so
+    slow clock drift on the card falls on both arms alike."""
     import bench
-    import pytest as _pytest
 
-    good = [
-        (lambda: {"metric": "lda", "value": 7e5, "unit": "docs/s",
-                  "vs_baseline": 14.0}, 600_000.0, True),
-        (lambda: {"metric": "ctm", "value": 0.6, "unit": "s/iter",
-                  "vs_baseline": 46.0}, 0.7, False),
-    ]
-    monkeypatch.setattr(bench, "_gate_specs", lambda: good)
-    bench.main(["--assert"])          # no SystemExit
+    order = bench.ab_order(5)
+    assert order.count("kernel") == order.count("xla") == 5
+    assert order[:4] == ["kernel", "xla", "xla", "kernel"]
+    assert all(a != b for a, b in zip(order[::2], order[1::2]))
 
-    bad = [(lambda: {"metric": "lda", "value": 1e5, "unit": "docs/s",
-                     "vs_baseline": 2.0}, 600_000.0, True)]
-    monkeypatch.setattr(bench, "_gate_specs", lambda: bad)
-    with _pytest.raises(SystemExit) as e:
-        bench.main(["--assert"])
-    assert e.value.code == 1
-    assert "PERF REGRESSION" in capsys.readouterr().err
+
+def test_bench_lines_name_the_device():
+    import jax
+
+    import bench
+
+    f = bench.device_fields()
+    assert f == {"platform": jax.devices()[0].platform,
+                 "device_kind": jax.devices()[0].device_kind,
+                 "device_count": len(jax.devices())}
 
 
 def test_pick_stream_batch_divisibility():

@@ -121,7 +121,7 @@ def _structured_reader_corpus(n_groups=10, docs_per_group=15,
     oracle ceiling of this generator is <=5th percentile: a held-out
     reader is drawn proportionally to activity, and ranking users by
     true group affinity x activity places it in the top few of ~190
-    non-readers.  (VERDICT r1 #7.)"""
+    non-readers."""
     rng = np.random.default_rng(seed)
     docs = []
     U = n_groups * users_per_group
@@ -150,9 +150,9 @@ def test_ctpf_heldout_reader_rank():
     plots.R:20-31): with power-law concentrated libraries the held-out
     reader must land in the top 5%% of non-readers (median), so a 2x
     quality regression is detectable — the old diffuse-synthetic gate
-    (<25%% mean) could not see one.  (VERDICT r1 #7; the protocol is
+    (<25%% mean) could not see one.  (The protocol is
     the library's evaluate.holdout_readers / heldout_reader_rank —
-    VERDICT r2 #6.)"""
+    the reference's own.)"""
     from topicmodelsvb_jl_tpu.evaluate import (
         heldout_reader_rank, holdout_readers, recall_at_k)
 
@@ -173,7 +173,7 @@ def test_ctpf_online_one_pass_heldout_rank():
     """ONE online (SVI) pass over a power-law reader corpus must already
     pass the same ≤5%% median held-out-rank gate the batch model meets
     with 40 full sweeps — the point of stochastic updates on large
-    corpora (VERDICT r2 #4)."""
+    corpora."""
     from topicmodelsvb_jl_tpu.evaluate import (
         heldout_reader_rank, holdout_readers, recall_at_k)
     from topicmodelsvb_jl_tpu.ops.packing import pack_corpus

@@ -76,7 +76,7 @@ def test_topic_coherence_prefers_planted_topics():
 
 def test_perplexity_matches_per_doc_loop(split):
     """The vectorized packed-array scorer must equal the straightforward
-    per-document loop exactly (VERDICT r2 #9)."""
+    per-document loop exactly."""
     from topicmodelsvb_jl_tpu.api import predict
 
     train, test = split

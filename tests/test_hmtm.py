@@ -216,7 +216,7 @@ def _shuffled(corp, seed=0):
 
 @pytest.mark.slow
 def test_hmtm_beats_lda_on_chains_ties_when_shuffled():
-    """The model family's VALUE gate (VERDICT r3 #6): order-aware
+    """The model family's VALUE gate: order-aware
     perplexity must beat LDA by a margin on sticky-chain corpora —
     word order carries topic structure, the model's whole motivation
     (HMTM/HMTMREADME.md) — and must TIE on the same corpora with each

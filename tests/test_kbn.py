@@ -1,7 +1,6 @@
 """Unit tests for the compensated (Kahan–Neumaier) accumulation helpers.
 
-These back the tol=1.0 stopping-semantics work (RESULTS.md "LDA
-convergence"): every model's ELBO and LDA/fLDA's Elogtheta_sum ride a
+These back the tol=1.0 stopping semantics: every model's ELBO and LDA/fLDA's Elogtheta_sum ride a
 (hi, lo) pair through the chunk scan, the cross-shard reduction, and —
 for El_sum — into the Dirichlet Newton's mean-form gradient
 (ops/newton.py, reference update_alpha! LDA.jl:97-118).

@@ -1,10 +1,11 @@
-"""Pallas kernel equivalence tests (interpret mode on CPU).
+"""Fused LDA E-step kernel tests (Pallas Triton route, interpret mode here).
 
 The fused E-step kernel must compute the same math as the pure-XLA
 fixpoint path (models/lda.py:_estep_chunk) — the reference's own
 CPU-vs-GPU relationship, where tolerance (not bitwise) agreement is the
 criterion because the two paths order float ops differently
-(LDA.jl:14-21 vs gpuLDA.jl:14-21).
+(LDA.jl:14-21 vs gpuLDA.jl:14-21).  The same comparison runs compiled
+on the card in chip_smoke.py's kernel-parity phase.
 """
 
 import jax
@@ -12,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from topicmodelsvb_jl_tpu.utils.numerics import elbo_value
-
-from topicmodelsvb_jl_tpu.kernels.lda_estep import digamma_series, lda_estep
+from topicmodelsvb_jl_tpu.kernels.lda_estep import (
+    TILE_BUDGET, choose_estep, digamma_series, lda_estep, padded_topics,
+)
 from topicmodelsvb_jl_tpu.models import lda as lda_mod
 from topicmodelsvb_jl_tpu.ops.packing import PackedCorpus
 
@@ -47,9 +48,12 @@ def test_digamma_series_matches_lax():
                                rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("K", [7, 16])
-def test_lda_estep_kernel_matches_xla(K):
-    packed = _small_packed()
+# two token widths: a power of two (one 32-slot sub-tile) and 24 slots
+# (three 8-slot sub-tiles, the shape bucketed packing produces)
+@pytest.mark.parametrize("L", [32, 24])
+@pytest.mark.parametrize("K", [7, 16, 100])
+def test_lda_estep_kernel_matches_xla(K, L):
+    packed = _small_packed(L=L)
     state = lda_mod.init(jax.random.PRNGKey(0), packed, K, jnp.float32)
     data = (
         jnp.asarray(packed.terms), jnp.asarray(packed.counts),
@@ -61,7 +65,7 @@ def test_lda_estep_kernel_matches_xla(K):
     step_p = jax.jit(lda_mod.make_step(packed, K, use_pallas=True,
                                        pallas_interpret=True, **kw))
     sx, sp = state, state
-    for _ in range(3):  # a few outer iterations so differences compound
+    for _ in range(2):  # two outer iterations so differences compound
         sx = step_x(sx, *data)
         sp = step_p(sp, *data)
     for f in ("alpha", "beta", "gamma", "Elogtheta"):
@@ -76,12 +80,11 @@ def test_lda_estep_padded_doc_rows_frozen():
     K = 8
     packed = _small_packed()
     state = lda_mod.init(jax.random.PRNGKey(0), packed, K, jnp.float32)
-    Kp = 128
+    Kp = padded_topics(K)
     padk = lambda a: jnp.pad(jnp.asarray(a), ((0, 0), (0, Kp - K)))
-    betaT_p = jnp.pad(state.beta.T + 1e-30, ((0, 0), (0, Kp - K)))
-    bd = betaT_p[jnp.asarray(packed.terms)]
     g, el, elo, w = lda_estep(
-        bd, jnp.asarray(packed.counts), jnp.asarray(packed.doc_mask),
+        padk(state.beta.T + 1e-30), jnp.asarray(packed.terms),
+        jnp.asarray(packed.counts), jnp.asarray(packed.doc_mask),
         jnp.pad(state.alpha, (0, Kp - K)),
         padk(state.gamma), padk(state.Elogtheta), padk(state.Elogtheta_old),
         viter=4, vtol=1e-6, n_topics=K, interpret=True,
@@ -91,165 +94,74 @@ def test_lda_estep_padded_doc_rows_frozen():
     np.testing.assert_array_equal(np.asarray(el)[-3:, :K],
                                   np.asarray(state.Elogtheta)[-3:])
     assert np.all(np.asarray(w)[-3:] == 0.0)
+    assert w.shape == (packed.terms.shape[0], packed.L, Kp)
 
 
-@pytest.mark.parametrize("K", [7, 16])
-def test_flda_estep_kernel_matches_xla(K):
-    from topicmodelsvb_jl_tpu.models import flda as flda_mod
-
-    packed = _small_packed()
-    state = flda_mod.init(jax.random.PRNGKey(1), packed, K, jnp.float32)
-    data = (
-        jnp.asarray(packed.terms), jnp.asarray(packed.counts),
-        jnp.asarray(packed.doc_mask),
-        jnp.asarray(float(packed.M), jnp.float32),
-        jnp.asarray(float(packed.C.sum()), jnp.float32),
-    )
-    kw = dict(viter=6, vtol=1.0 / K**2, niter=50, ntol=1.0 / K**2,
-              chunk_docs=16, axis_name=None)
-    step_x = jax.jit(flda_mod.make_step(packed, K, use_pallas=False, **kw))
-    step_p = jax.jit(flda_mod.make_step(packed, K, use_pallas=True,
-                                        pallas_interpret=True, **kw))
-    sx, sp = state, state
-    for _ in range(3):
-        sx = step_x(sx, *data)
-        sp = step_p(sp, *data)
-    for f in ("alpha", "beta", "kappa", "gamma", "Elogtheta", "tau", "eta"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(sx, f)), np.asarray(getattr(sp, f)),
-            rtol=5e-3, atol=1e-5, err_msg=f"{f} diverged")
-
-
-def test_ctpf_estep_kernel_matches_xla():
+def test_lda_estep_bucketed_segments_match_xla():
+    """A bucketed corpus runs the kernel once per segment width, each
+    segment on its own rows of the per-doc state, in one sweep."""
     import topicmodelsvb_jl_tpu as tm
-    from topicmodelsvb_jl_tpu.models import ctpf as ctpf_mod
-    from topicmodelsvb_jl_tpu.ops.packing import pack_corpus
-
-    K = 9
-    corp = tm.synth_corpus(M=48, V=60, K=4, U=20, seed=5,
-                           mean_terms=12, mean_tokens=20)
-    packed = pack_corpus(corp, pad_multiple=8, docs_multiple=16,
-                         with_readers=True)
-    state = ctpf_mod.init(jax.random.PRNGKey(2), packed, K, jnp.float32)
-    data = (jnp.asarray(packed.terms), jnp.asarray(packed.counts),
-            jnp.asarray(packed.readers), jnp.asarray(packed.ratings),
-            jnp.asarray(packed.doc_mask))
-    kw = dict(viter=5, vtol=1.0 / K**2, chunk_docs=16, axis_name=None)
-    step_x = jax.jit(ctpf_mod.make_step(packed, K, use_pallas=False, **kw))
-    step_p = jax.jit(ctpf_mod.make_step(packed, K, use_pallas=True,
-                                        pallas_interpret=True, **kw))
-    sx, sp = state, state
-    for _ in range(3):
-        sx = step_x(sx, *data)
-        sp = step_p(sp, *data)
-    for f in ("alef", "bet", "gimel", "dalet", "he", "vav", "zayin", "het"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(sx, f)), np.asarray(getattr(sp, f)),
-            rtol=2e-2, atol=1e-5, err_msg=f"{f} diverged")
-
-
-def test_alog_bits_matches_log():
-    """The bitcast-based in-kernel log must be sub-ULP-accurate for the
-    positive normals the ELBO kernel feeds it."""
-    from topicmodelsvb_jl_tpu.kernels.lda_elbo import alog_bits
-
-    r = np.random.default_rng(0)
-    x = np.concatenate([r.uniform(1e-30, 1.0, 5000),
-                        r.uniform(1.0, 1e4, 5000),
-                        [1e-30, 1.0, 2.0, np.float32(np.finfo(np.float32).max)]
-                        ]).astype(np.float32)
-    got = np.asarray(alog_bits(jnp.asarray(x)), np.float64)
-    want = np.log(x.astype(np.float64))
-    eps32 = np.float64(np.finfo(np.float32).eps)
-    rel = np.abs(got - want) / np.maximum(np.abs(want), 1.0)
-    assert rel.max() < 2.0 * eps32
-
-
-def test_lda_elbo_kernel_matches_xla_routed():
-    """Routed vocab-TP ELBO: the fused kernel (local [V/n] tables, the
-    token accumulator carrying Elogpz by linearity) must agree with the
-    routed XLA pass — this is the production on-chip routed ELBO path."""
-    from jax.sharding import PartitionSpec as P
-
-    from topicmodelsvb_jl_tpu.ops.packing import route_packed
-    from topicmodelsvb_jl_tpu.parallel.mesh import make_mesh
-    from topicmodelsvb_jl_tpu.parallel.shard import shard_map
+    from topicmodelsvb_jl_tpu.ops.packing import bucketize_packed, pack_corpus
 
     K = 16
-    packed = _small_packed()
-    routed = route_packed(packed, n_shards=4, pad_multiple=8)
+    corp = tm.synth_corpus(M=48, V=60, K=4, seed=5, mean_terms=12,
+                           mean_tokens=20)
+    packed = bucketize_packed(pack_corpus(corp, pad_multiple=8,
+                                          docs_multiple=16),
+                              chunk=16, pad_multiple=8)
+    assert len(packed.segments) > 1
     state = lda_mod.init(jax.random.PRNGKey(0), packed, K, jnp.float32)
-    data = (
-        jnp.asarray(packed.terms), jnp.asarray(packed.counts),
-        jnp.asarray(packed.doc_mask),
-        jnp.asarray(float(packed.M), jnp.float32),
-    )
-    step = jax.jit(lda_mod.make_step(
-        packed, K, viter=6, vtol=1.0 / K**2, niter=50, ntol=1.0 / K**2,
-        chunk_docs=16, axis_name=None, use_pallas=False))
-    for _ in range(2):
-        state = step(state, *data)
-
-    mesh = make_mesh(axis_names=("data", "vocab"), shape=(2, 4))
-    spec = lda_mod.partition_spec(data_axis="data", vocab_axis="vocab")
-    tokspec, dspec = P("data", "vocab"), P("data")
-    mk = lambda **kw: jax.jit(shard_map(
-        lda_mod.make_elbo(routed, K, chunk_docs=16, axis_name="data",
-                          vocab_axis="vocab", vocab_routed=True, **kw),
-        mesh=mesh, in_specs=(spec, tokspec, tokspec, dspec),
-        out_specs=P(), check_vma=False))
-    rdata = (jnp.asarray(routed.terms), jnp.asarray(routed.counts),
-             jnp.asarray(routed.doc_mask))
-    a = elbo_value(mk(use_pallas=False)(state, *rdata))
-    b = elbo_value(mk(use_pallas=True, pallas_interpret=True)(
-        state, *rdata))
-    assert abs(a - b) / abs(a) < 1e-5, (a, b)
+    data = (tuple(jnp.asarray(s.terms) for s in packed.segments),
+            tuple(jnp.asarray(s.counts) for s in packed.segments),
+            tuple(jnp.asarray(s.doc_mask) for s in packed.segments),
+            jnp.asarray(float(packed.M), jnp.float32))
+    kw = dict(viter=5, vtol=1.0 / K**2, niter=50, ntol=1.0 / K**2,
+              chunk_docs=16, axis_name=None)
+    sx = jax.jit(lda_mod.make_step(packed, K, use_pallas=False, **kw))(
+        state, *data)
+    sp = jax.jit(lda_mod.make_step(packed, K, use_pallas=True,
+                                   pallas_interpret=True, **kw))(state, *data)
+    for f in ("beta", "gamma", "Elogtheta"):
+        np.testing.assert_allclose(np.asarray(getattr(sx, f)),
+                                   np.asarray(getattr(sp, f)),
+                                   rtol=5e-3, atol=1e-5, err_msg=f)
 
 
-@pytest.mark.parametrize("K", [7, 16])
-def test_lda_elbo_kernel_matches_xla(K):
-    """The fused ELBO kernel's bound must agree with the XLA pass."""
-    packed = _small_packed()
-    state = lda_mod.init(jax.random.PRNGKey(0), packed, K, jnp.float32)
-    data = (
-        jnp.asarray(packed.terms), jnp.asarray(packed.counts),
-        jnp.asarray(packed.doc_mask), jnp.asarray(float(packed.M), jnp.float32),
-    )
-    step = jax.jit(lda_mod.make_step(
-        packed, K, viter=6, vtol=1.0 / K**2, niter=50, ntol=1.0 / K**2,
-        chunk_docs=16, axis_name=None, use_pallas=False))
-    for _ in range(2):
-        state = step(state, *data)
-    ex = jax.jit(lda_mod.make_elbo(packed, K, chunk_docs=16, use_pallas=False))
-    ep = jax.jit(lda_mod.make_elbo(packed, K, chunk_docs=16, use_pallas=True,
-                                   pallas_interpret=True))
-    a = elbo_value(ex(state, *data[:3]))
-    b = elbo_value(ep(state, *data[:3]))
-    assert abs(a - b) / abs(a) < 1e-5, (a, b)
+@pytest.mark.parametrize("K,expect", [(7, 16), (16, 16), (17, 32),
+                                      (100, 128), (128, 128)])
+def test_padded_topics_is_power_of_two(K, expect):
+    assert padded_topics(K) == expect
 
 
-@pytest.mark.parametrize("K", [7, 16])
-def test_ctm_elbo_kernel_matches_xla(K):
-    """CTM reuses lda_elbo_tok with (El, El_old) := (lambda, lambda_old);
-    the bound must agree with CTM's XLA ELBO pass."""
-    from topicmodelsvb_jl_tpu.models import ctm as ctm_mod
-
-    packed = _small_packed()
-    state = ctm_mod.init(jax.random.PRNGKey(0), packed, K, jnp.float32)
-    data = (
-        jnp.asarray(packed.terms), jnp.asarray(packed.counts),
-        jnp.asarray(packed.doc_mask), jnp.asarray(float(packed.M), jnp.float32),
-    )
-    step = jax.jit(ctm_mod.make_step(
-        packed, K, viter=4, vtol=1.0 / K**2, niter=20, ntol=1.0 / K**2,
-        chunk_docs=16, axis_name=None, use_pallas=False))
-    for _ in range(2):
-        state = step(state, *data)
-    ex = jax.jit(ctm_mod.make_elbo(packed, K, chunk_docs=16, use_pallas=False))
-    ep = jax.jit(ctm_mod.make_elbo(packed, K, chunk_docs=16, use_pallas=True,
-                                   pallas_interpret=True))
-    a = elbo_value(ex(state, *data[:3]))
-    b = elbo_value(ep(state, *data[:3]))
-    assert abs(a - b) / abs(a) < 1e-5, (a, b)
+_WIDE = TILE_BUDGET // 128 + 8     # one slot group past the K=100 budget
 
 
+@pytest.mark.parametrize("kw,want", [
+    (dict(backend="gpu"), True),                        # auto: GPU, K >= 64
+    (dict(backend="cpu"), False),                       # auto: not on the CPU
+    (dict(backend="gpu", K=32), False),                 # auto: small K
+    (dict(backend="cpu", use_pallas=True), True),       # forced (interpret)
+    (dict(backend="gpu", use_pallas=False), False),     # forced off
+    (dict(backend="gpu", elogtheta_f64=True), False),   # f64 digamma channel
+    (dict(backend="gpu", seq_axis="seq"), False),       # token-axis sharding
+    (dict(backend="gpu", vocab_routed=True), False),    # routed vocab-TP
+    (dict(backend="gpu", L=_WIDE), False),              # past the tile budget
+    (dict(backend="gpu", use_pallas=True, L=_WIDE), False),
+    (dict(backend="gpu", L=20), False),                 # width not a multiple of 8
+])
+def test_choose_estep_rules(kw, want):
+    kw = dict(kw)
+    K = kw.pop("K", 100)
+    L = kw.pop("L", 96)
+    assert choose_estep(K, L, **kw) is want
+
+
+@pytest.mark.parametrize("L", [8, 88, 136, 256])
+@pytest.mark.parametrize("Kp", [16, 128, 256])
+def test_launch_config_warps_power_of_two(L, Kp):
+    """Triton aborts on a warp count that is not a power of two (a width
+    of 88 once gave 11)."""
+    from topicmodelsvb_jl_tpu.kernels.lda_estep import launch_config
+
+    docs, warps = launch_config(L, Kp)
+    assert docs == 1 and 2 <= warps <= 8 and warps & (warps - 1) == 0

@@ -19,7 +19,7 @@ def _make_lda(corp, K, n_devices=None, dtype="float64", chunk=8, seed=3):
 
 
 def test_lda_matches_cpu_oracle(tiny_corpus):
-    """Batch-synchronous TPU schedule reproduces the reference CPU
+    """Batch-synchronous device schedule reproduces the reference CPU
     per-doc sweep exactly (beta/alpha only change post-sweep)."""
     K, iters = 4, 5
     model = _make_lda(tiny_corpus, K)
@@ -122,9 +122,8 @@ def test_reference_tol_semantics_reachable_f64():
     ∆elbo, no negative deltas, termination before the iteration cap —
     reachable only with the compensated (hi, lo) bound accumulation
     (utils/numerics.py) once the corpus bound dwarfs the f32 ulp.
-    The full-scale demonstrations live in RESULTS.md (f64 at
-    M=8192/V=8192/K=50 stops at iter 439; f32 at NSF scale stops at the
-    training-arithmetic noise floor instead)."""
+    (At full scale f32 stops at the training-arithmetic noise floor
+    instead.)"""
     import topicmodelsvb_jl_tpu as tm
 
     corp = tm.synth_corpus(768, 384, K=10, seed=7, mean_tokens=50,

@@ -109,10 +109,10 @@ def test_masked_fixpoint_matches_fori_loop():
 
 def test_accurate_f32_transcendentals_vs_scipy():
     """The f32 alog/aexp/algamma/adigamma constructions must stay within
-    a few ULPs of the scipy float64 truth.  (TPU's VPU intrinsics are
-    hundreds of ULPs off — mean |err| 1.7e-3 for f32 lgamma measured on
-    chip — which is why these exist; IEEE f32 arithmetic is identical on
-    CPU, so this test certifies the chip behaviour too.)"""
+    a few ULPs of the scipy float64 truth.  (They exist because fast
+    backend intrinsics can be hundreds of ULPs off; IEEE f32 arithmetic
+    is identical on every backend, so this test certifies the
+    accelerator behaviour too.)"""
     from scipy.special import digamma as sdigamma
     from scipy.special import gammaln
 

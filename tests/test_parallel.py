@@ -253,8 +253,7 @@ def test_ctpf_vocab_and_user_axis_tp_matches_single_device():
             jnp.asarray(packed.readers), jnp.asarray(packed.ratings),
             jnp.asarray(packed.doc_mask))
     step1 = jax.jit(ctpf_mod.make_step(
-        packed, K, viter=3, vtol=1.0 / K**2, chunk_docs=8, axis_name=None,
-        use_pallas=False))
+        packed, K, viter=3, vtol=1.0 / K**2, chunk_docs=8, axis_name=None))
     ref = st
     for _ in range(2):
         ref = step1(ref, *data)
@@ -266,7 +265,7 @@ def test_ctpf_vocab_and_user_axis_tp_matches_single_device():
                                    user_axis="user")
     step_l = ctpf_mod.make_step(
         packed, K, viter=3, vtol=1.0 / K**2, chunk_docs=4, axis_name=axes,
-        use_pallas=False, vocab_axis="vocab", user_axis="user")
+        vocab_axis="vocab", user_axis="user")
     dspec = P(axes)
     step = jax.jit(shard_map(
         step_l, mesh=mesh,
@@ -303,7 +302,7 @@ def test_flda_vocab_axis_tp_matches_single_device():
             jnp.asarray(float(packed.C.sum()), jnp.float64))
     step1 = jax.jit(flda_mod.make_step(
         packed, K, viter=3, vtol=1.0 / K**2, niter=30, ntol=1.0 / K**2,
-        chunk_docs=8, axis_name=None, use_pallas=False))
+        chunk_docs=8, axis_name=None))
     ref = st
     for _ in range(2):
         ref = step1(ref, *data)
@@ -313,7 +312,7 @@ def test_flda_vocab_axis_tp_matches_single_device():
                                    vocab_axis="vocab")
     step_l = flda_mod.make_step(
         packed, K, viter=3, vtol=1.0 / K**2, niter=30, ntol=1.0 / K**2,
-        chunk_docs=4, axis_name=("data", "vocab"), use_pallas=False,
+        chunk_docs=4, axis_name=("data", "vocab"),
         vocab_axis="vocab")
     dspec = P(("data", "vocab"))
     step = jax.jit(shard_map(
@@ -445,7 +444,7 @@ def test_flda_seq_axis_sp_matches_single_device():
             jnp.asarray(float(packed.C.sum()), jnp.float64))
     step1 = jax.jit(flda_mod.make_step(
         packed, K, viter=3, vtol=1.0 / K**2, niter=30, ntol=1.0 / K**2,
-        chunk_docs=8, axis_name=None, use_pallas=False))
+        chunk_docs=8, axis_name=None))
     ref = st
     for _ in range(2):
         ref = step1(ref, *data)
@@ -454,7 +453,7 @@ def test_flda_seq_axis_sp_matches_single_device():
     spec = flda_mod.partition_spec(data_axis="data", seq_axis="seq")
     step_l = flda_mod.make_step(
         packed, K, viter=3, vtol=1.0 / K**2, niter=30, ntol=1.0 / K**2,
-        chunk_docs=16, axis_name="data", use_pallas=False, seq_axis="seq")
+        chunk_docs=16, axis_name="data", seq_axis="seq")
     tokspec, dspec = P("data", "seq"), P("data")
     step = jax.jit(shard_map(
         step_l, mesh=mesh,
@@ -580,8 +579,7 @@ def test_ctpf_seq_axis_sp_matches_single_device():
             jnp.asarray(packed.readers), jnp.asarray(packed.ratings),
             jnp.asarray(packed.doc_mask))
     step1 = jax.jit(ctpf_mod.make_step(
-        packed, K, viter=3, vtol=1.0 / K**2, chunk_docs=8, axis_name=None,
-        use_pallas=False))
+        packed, K, viter=3, vtol=1.0 / K**2, chunk_docs=8, axis_name=None))
     ref = st
     for _ in range(2):
         ref = step1(ref, *data)
@@ -590,7 +588,7 @@ def test_ctpf_seq_axis_sp_matches_single_device():
     spec = ctpf_mod.partition_spec(data_axis="data")
     step_l = ctpf_mod.make_step(
         packed, K, viter=3, vtol=1.0 / K**2, chunk_docs=16, axis_name="data",
-        use_pallas=False, seq_axis="seq")
+        seq_axis="seq")
     tokspec, dspec = P("data", "seq"), P("data")
     step = jax.jit(shard_map(
         step_l, mesh=mesh,

@@ -173,8 +173,7 @@ def _inmemory_ctpf(packed, K, iters, viter=5):
     state = ctpf_mod.init(jax.random.PRNGKey(3), packed, K, jnp.float64)
     vtol = 1.0 / K**2
     step = jax.jit(ctpf_mod.make_step(
-        packed, K, viter=viter, vtol=vtol, chunk_docs=16, axis_name=None,
-        use_pallas=False))
+        packed, K, viter=viter, vtol=vtol, chunk_docs=16, axis_name=None))
     elbo = jax.jit(ctpf_mod.make_elbo(packed, K, chunk_docs=16))
     data = (jnp.asarray(packed.terms),
             jnp.asarray(packed.counts.astype(np.float64)),
@@ -264,7 +263,7 @@ def test_streaming_ctpf_online_climbs_and_scores():
         s.train_online(epochs=1, kappa=0.3)
 
 
-# ───────────────── streaming checkpoint/resume (VERDICT r2 #3) ─────────────────
+# ───────────────── streaming checkpoint/resume ─────────────────
 
 def test_streaming_lda_checkpoint_resume(tmp_path):
     from topicmodelsvb_jl_tpu import streaming as st
@@ -387,13 +386,13 @@ def _inmemory_generic(name, packed, K, iters, viter=4):
         from topicmodelsvb_jl_tpu.models import ctm as mod
         step = jax.jit(mod.make_step(
             packed, K, viter=viter, vtol=vtol, niter=50, ntol=vtol,
-            chunk_docs=16, axis_name=None, use_pallas=False))
+            chunk_docs=16, axis_name=None))
         data = base + (M_total,)
     elif name == "flda":
         from topicmodelsvb_jl_tpu.models import flda as mod
         step = jax.jit(mod.make_step(
             packed, K, viter=viter, vtol=vtol, niter=50, ntol=vtol,
-            chunk_docs=16, axis_name=None, use_pallas=False))
+            chunk_docs=16, axis_name=None))
         C_total = jnp.asarray(float(packed.C.sum()), jnp.float64)
         data = base + (M_total, C_total)
     elif name == "hmtm":

@@ -1,4 +1,4 @@
-"""Multi-controller streaming (VERDICT r3 #1): 2 OS processes, each
+"""Multi-controller streaming: 2 OS processes, each
 owning the batch-strided half of the corpus (its slice of every global
 batch + the host per-doc state for those rows), streaming its own
 batches — trajectory must equal the single-process streaming run of the
@@ -182,7 +182,7 @@ def _single_generic(cls_name, packed_kind="lda"):
 
 
 def test_two_process_streaming_ctm_matches_single():
-    """Multi-controller breadth (VERDICT r4 #4): a CTM-family member —
+    """Multi-controller breadth: a CTM-family member —
     moment statistics (vsq/lam sums + lam outer) reduce across
     processes, not just count tables."""
     outs = _run_group(2, "ctm")
@@ -197,7 +197,7 @@ def test_two_process_streaming_ctm_matches_single():
 
 
 def test_two_process_streaming_hmtm_matches_single():
-    """Multi-controller breadth (VERDICT r4 #4): HMTM — chain-posterior
+    """Multi-controller breadth: HMTM — chain-posterior
     statistics (beta counts + pi/theta expected-log sums) reduce across
     processes."""
     outs = _run_group(2, "hmtm")
@@ -210,7 +210,7 @@ def test_two_process_streaming_hmtm_matches_single():
 
 def test_two_process_streaming_flda_fctm_dtm_matches_single():
     """Multi-controller breadth, completed to all seven families
-    (VERDICT r4 #4 asked for one CTM-family member + HMTM; fLDA, fCTM
+    (one CTM-family member + HMTM; fLDA, fCTM
     and DTM close the matrix).  DTM additionally checks that the
     [T, K, V] smoother state evolves identically while per-doc state is
     process-sharded."""
@@ -253,7 +253,7 @@ def test_two_process_streaming_flda_fctm_dtm_matches_single():
 
 
 def test_two_process_streaming_disk_backed_matches_single(tmp_path):
-    """The flagship composition (VERDICT r4 #4): multi-controller ×
+    """The flagship composition: multi-controller ×
     literal disk streaming.  The corpus is packed ONCE to a shared
     read-only dir; each process memmaps it (touching only its own
     batch-strided rows) and keeps its per-doc state in writable
@@ -290,7 +290,7 @@ def test_two_process_streaming_disk_backed_matches_single(tmp_path):
 
 
 def test_elastic_restore_any_process_count(tmp_path):
-    """Elastic N→M restore (VERDICT r4 #5): a 2-process directory
+    """Elastic N→M restore: a 2-process directory
     checkpoint resumes at 4 processes and a 4-process one at 2, each
     continuing the exact single-process trajectory."""
     import jax

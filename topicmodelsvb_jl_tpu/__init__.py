@@ -1,4 +1,4 @@
-"""topicmodelsvb_jl_tpu — TPU-native variational-Bayes topic modeling.
+"""topicmodelsvb_jl_tpu — variational-Bayes topic modeling on JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 ericproffitt/TopicModelsVB.jl: LDA, filtered LDA, correlated topic

@@ -8,7 +8,7 @@ kwargs and defaults, and the post-hoc tools ``topicdist``,
 
 Unlike the reference there is no CPU/GPU model split and no ``@gpu``
 macro (macros.jl:106-284): every model runs the same jitted,
-shard_map'd TPU path whether the mesh has 1 device or a pod slice.
+shard_map'd path whether the mesh has 1 device or many.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ class TopicModel:
     _per_doc_fields: tuple = ()   # state fields with a leading doc axis
     # chunk_docs used when the caller passes no RuntimeConfig; the
     # Newton-heavy CTM/fCTM amortize their while-loop latency over
-    # larger chunks (measured ~25% at NSF K=50, bench_ctm.py)
+    # larger chunks (tuned on earlier hardware; not measured on the H100)
     _preferred_chunk: int = 1024
 
     def _ctor_kwargs(self) -> dict:
@@ -239,7 +239,7 @@ class TopicModel:
         return int(np.asarray(p.terms).size)
 
     def _flops_per_step(self) -> float:
-        """Arithmetic estimate for one outer iteration (roofline/MFU figure).
+        """Arithmetic estimate for one outer iteration (the TFLOP/s figure).
 
         E-step lower bound: each of the ``viter`` sweeps does ~6 flops per
         (token-slot, topic) — exp(Elogtheta)·beta gather-multiply, the phi
@@ -247,7 +247,7 @@ class TopicModel:
         Subclasses add their deterministic extra work (CTM/fCTM Newton
         floor, fLDA/fCTM tau, CTPF xi, DTM smoother+CG, HMTM chains);
         data-dependent early-exited iterations stay uncounted, so the
-        reported MFU is still a lower bound.
+        reported rate is a lower bound.
         """
         viter = self._cfg.viter if getattr(self, "_cfg", None) else 10
         return float(viter * self._padded_tokens() * 6 * self.K)
@@ -277,14 +277,13 @@ class TopicModel:
         cached on THIS model keyed by (inference config, packed shape
         signature): repeated calls with same-shaped corpora trigger no
         model reconstruction of the jitted program and zero
-        recompilation (VERDICT r2 #5)."""
+        recompilation."""
         return predict(corp, self, iter=iter, tol=tol, niter=niter,
                        ntol=ntol)
 
     def _trainer_kw(self, spec=None) -> dict:
         kw = dict(C=int(sum(self.C)),
                   flops_per_step=self._flops_per_step(),
-                  peak_flops=self.runtime.peak_flops,
                   metrics_path=self.runtime.metrics_path,
                   profile_dir=self.runtime.profile_dir,
                   profile_steps=self.runtime.profile_steps)
@@ -526,7 +525,6 @@ class LDA(TopicModel):
         elbo_local = lda_mod.make_elbo(
             p, self.K, chunk_docs=self.chunk_docs,
             axis_name=self.runtime.data_axis,
-            use_pallas=None if self.runtime.use_pallas else False,
         )
         spec = lda_mod.partition_spec(self.runtime.data_axis)
         from jax.sharding import PartitionSpec as P
@@ -676,7 +674,7 @@ class CTM(TopicModel):
         per viter pass, every doc runs ≥1 Newton iteration whose PCG solve
         does ≥1 [K]@[K,K] matvec (2K²) plus grad/vsq elementwise ~10K.
         Early-exiting Newton/CG iterations beyond the first are data-
-        dependent and uncounted — still a lower bound (VERDICT r2)."""
+        dependent and uncounted — still a lower bound."""
         viter = self._cfg.viter if getattr(self, "_cfg", None) else 10
         return super()._flops_per_step() + float(
             viter * self.packed.M_pad * (2 * self.K**2 + 10 * self.K))
@@ -690,13 +688,11 @@ class CTM(TopicModel):
             p, self.K, viter=cfg.viter, vtol=cfg.vtol, niter=cfg.niter,
             ntol=cfg.ntol, chunk_docs=self.chunk_docs,
             axis_name=self.runtime.data_axis,
-            use_pallas=None if self.runtime.use_pallas else False,
             identify=self.identify,
         )
         elbo_local = ctm_mod.make_elbo(
             p, self.K, chunk_docs=self.chunk_docs,
             axis_name=self.runtime.data_axis,
-            use_pallas=None if self.runtime.use_pallas else False,
         )
         spec = ctm_mod.partition_spec(self.runtime.data_axis)
         from jax.sharding import PartitionSpec as P
@@ -875,7 +871,6 @@ class fLDA(TopicModel):
             p, self.K, viter=cfg.viter, vtol=cfg.vtol, niter=cfg.niter,
             ntol=cfg.ntol, chunk_docs=self.chunk_docs,
             axis_name=self.runtime.data_axis,
-            use_pallas=None if self.runtime.use_pallas else False,
             elogtheta_f64=self.runtime.elogtheta_f64,
         )
         elbo_local = flda_mod.make_elbo(
@@ -1128,7 +1123,6 @@ class CTPF(TopicModel):
         step_local = ctpf_mod.make_step(
             p, self.K, viter=cfg.viter, vtol=cfg.vtol,
             chunk_docs=self.chunk_docs, axis_name=self.runtime.data_axis,
-            use_pallas=None if self.runtime.use_pallas else False,
         )
         elbo_local = ctpf_mod.make_elbo(
             p, self.K, chunk_docs=self.chunk_docs, axis_name=self.runtime.data_axis
@@ -1385,7 +1379,7 @@ def predict(corp, train_model: TopicModel, iter: int = 10,
     # per-doc fixpoint; the trailing M-step output is discarded below.
     cfg = TrainConfig(iter=1, viter=iter, vtol=tol, niter=niter, ntol=ntol,
                       checkelbo=float("inf"), printelbo=False).resolved(train_model.K)
-    # serve-path cache (VERDICT r2 #5): the jitted step depends only on
+    # serve-path cache: the jitted step depends only on
     # the inference config and the packed SHAPE signature, so repeated
     # calls — batch serving, perplexity over the same held-out split —
     # reuse the compiled program with zero retracing/recompilation

@@ -21,7 +21,8 @@ process 0 writes ``manifest.json`` after a cross-process barrier.
 :func:`load` accepts either format at **any** process count — a run
 killed on N hosts can resume on one, and vice versa.  Assumes the
 checkpoint path is a filesystem all processes can reach (the usual
-shared-FS/NFS arrangement on TPU pods — same assumption orbax makes).
+shared-FS/NFS arrangement on multi-host clusters — same assumption
+orbax makes).
 """
 
 from __future__ import annotations
@@ -172,8 +173,8 @@ def snapshot(model, compress: str = None) -> tuple:
     ``compress="f16"`` casts the per-document leaves — the snapshot's
     dominant bytes (at NSF K=100: 3×[128804, 100] vs beta's 2×[100,
     25319]) — to float16 ON DEVICE before the DMA starts, halving the
-    D2H transfer the async writer must hide (the measured bottleneck
-    through a slow host link; RESULTS.md "Async checkpointing").
+    D2H transfer the async writer must hide behind the training steps
+    (the bottleneck on a slow host link).
     Restore casts back; a resumed run re-converges the per-doc fixpoint
     from the rounded state, so the trace is no longer bit-reproduced —
     an opt-in size/fidelity trade (RuntimeConfig.checkpoint_f16).

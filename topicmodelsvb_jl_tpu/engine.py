@@ -64,7 +64,6 @@ class Trainer:
         M: int = 0,
         C: int = 0,
         flops_per_step: float = 0.0,
-        peak_flops: float = 0.0,
         printer: Callable[[str], None] = print,
         metrics_path: Optional[str] = None,
         profile_dir: Optional[str] = None,
@@ -79,10 +78,9 @@ class Trainer:
         self.elbo_data = tuple(elbo_data) if elbo_data is not None else self.data
         self.M = M
         # corpus token count (reference: model.C, LDA.jl:31) → tokens/sec;
-        # flops_per_step + peak_flops (chip peak, e.g. v5e f32) → MFU
+        # flops_per_step (an arithmetic estimate) → TFLOP/s
         self.C = C
         self.flops_per_step = flops_per_step
-        self.peak_flops = peak_flops
         self.printer = printer
         self.trace: List[IterationRecord] = []
         # observability (SURVEY §5.1/§5.5): JSONL per-iteration metrics
@@ -218,6 +216,4 @@ class Trainer:
         if self.flops_per_step and mean_step:
             out["flops_per_step"] = self.flops_per_step
             out["tflops_per_s"] = self.flops_per_step / mean_step / 1e12
-            if self.peak_flops:
-                out["mfu"] = self.flops_per_step / mean_step / self.peak_flops
         return out

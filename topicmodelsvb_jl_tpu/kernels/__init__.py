@@ -1,8 +1,7 @@
-"""Pallas TPU kernels for the hot CAVI inner loops.
+"""Hand-written GPU kernels for the hot CAVI inner loops.
 
-TPU-native replacements for the reference's embedded OpenCL kernels
-(gpuLDA.jl / gpuCTM.jl / gpuCTPF.jl string constants).  Each kernel
-fuses what the reference split into several kernel launches and keeps
-the per-document working set VMEM-resident across the whole E-step
-fixpoint instead of round-tripping HBM every inner iteration.
+Each replaces a set of the reference's embedded OpenCL kernels
+(gpuLDA.jl string constants) and stays only while it beats the plain
+XLA body end to end on the card (PERF.md).  ``lda_estep`` is a Pallas
+kernel lowered through Triton; its tests run it in interpret mode.
 """

@@ -1,6 +1,6 @@
-"""Correlated topic model — batch-synchronous CAVI on TPU.
+"""Correlated topic model — batch-synchronous CAVI.
 
-TPU-native redesign of the reference CTM (``src/CTM.jl``) and its OpenCL
+Redesign of the reference CTM (``src/CTM.jl``) and its OpenCL
 twin (``src/gpuCTM.jl``).  The reference's heaviest machinery — a
 per-document Newton step whose K×K solve runs as a workgroup-local
 Gauss–Jordan with barrier sync inside an OpenCL kernel
@@ -28,9 +28,9 @@ from ..ops.newton import ctm_lambda_newton, ctm_vsq_newton
 from ..ops.packing import seg_loc_starts
 from ..ops.segment import count_scatter
 from ..utils.numerics import (
-    EPSILON, aexp, alog, asoftmax, categorical_entropy, dirichlet_ones, kbn_add,
-    kbn_merge, kbn_pack, kbn_psum, kbn_zero, l2norm, logsumexp,
-    masked_fixpoint, mvnormal_diag_entropy,
+    EPSILON, aexp, alog, asoftmax, categorical_entropy, dirichlet_ones,
+    highest_precision, kbn_add, kbn_merge, kbn_pack, kbn_psum, kbn_zero,
+    l2norm, logsumexp, masked_fixpoint, mvnormal_diag_entropy,
 )
 
 
@@ -80,6 +80,7 @@ def _phi(logbeta_d, lam, softmax=jax.nn.softmax):
     return softmax(logbeta_d + lam[:, None, :], axis=-1)
 
 
+@highest_precision
 def _estep_chunk(logbetaT, mu, invsigma, terms, counts, doc_mask,
                  lam, lam_old, vsq, logzeta, viter, vtol, niter, ntol, V,
                  seq_axis=None):
@@ -138,7 +139,6 @@ def _estep_chunk(logbetaT, mu, invsigma, terms, counts, doc_mask,
 
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
               chunk_docs: int, axis_name=None,
-              use_pallas: Optional[bool] = None, pallas_interpret: bool = False,
               vocab_axis: Optional[str] = None, seq_axis: Optional[str] = None,
               identify: bool = False):
     """One CAVI sweep.  ``vocab_axis`` shards beta *storage* over that
@@ -147,14 +147,6 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
     in ``axis_name`` and shard docs over both axes.  ``seq_axis`` shards
     every document's token axis (SP analogue); incompatible with
     bucketed packing, like models/lda.py.
-
-    ``use_pallas``/``pallas_interpret`` are accepted for signature
-    uniformity with the other families and ignored: the fused CTM
-    fixpoint kernel measured 5.5× SLOWER than the XLA body at NSF
-    scale and was retired after its sunset date (full analysis
-    preserved in ROADMAP.md "fused CTM fixpoint kernel").  The XLA
-    body (batched ``lax.while_loop`` Newtons + PCG solve) is the
-    production path.
 
     ``identify=True`` applies the projection normalisation the
     reference's todo.txt:25 / issue #14 propose but never implemented:
@@ -169,7 +161,6 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
     1-direction), which bounds uᵀσu ≥ (uᵀ1)²/K so σ can never go
     singular through the gauge channel.  Default OFF: the unprojected
     update is the reference's exact semantics (oracle parity)."""
-    del use_pallas, pallas_interpret  # retired experimental path (ROADMAP.md)
     V = packed.V
     seg_starts = seg_loc_starts(packed)
     if seq_axis is not None:
@@ -276,26 +267,15 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
             lam=lam, lam_old=lam_old, vsq=vsq, logzeta=logzeta, elbo=state.elbo,
         )
 
-    return step
+    return highest_precision(step)
 
 
 def make_elbo(packed, K: int, chunk_docs: int, axis_name=None,
-              vocab_axis: Optional[str] = None, seq_axis: Optional[str] = None,
-              use_pallas: Optional[bool] = None, pallas_interpret: bool = False):
-    """ELBO (CTM.jl:55-98): phi recomputed from (beta_old, lambda_old).
-
-    ``use_pallas`` routes the token-level terms through the SAME fused
-    kernel as LDA's ELBO (kernels/lda_elbo.py): CTM's phi is
-    softmax(log beta_old + lambda_old) — algebraically LDA's phi with
-    lambda in Elogtheta's role — so ``lda_elbo_tok`` computes CTM's
-    Elogpz(token part) + Elogpw − Elogqz verbatim with
-    (El, El_old) := (lambda, lambda_old)."""
+              vocab_axis: Optional[str] = None, seq_axis: Optional[str] = None):
+    """ELBO (CTM.jl:55-98): phi recomputed from (beta_old, lambda_old)."""
     V = packed.V
     seg_starts = seg_loc_starts(packed)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu" and seq_axis is None
     if seq_axis is not None:
-        use_pallas = False
         assert seg_starts is None, "token-axis sharding requires dense packing"
 
     def elbo(state: CTMState, terms, counts, doc_mask):
@@ -318,34 +298,6 @@ def make_elbo(packed, K: int, chunk_docs: int, axis_name=None,
         # one combined [V, 2K] table: both per-token gathers pay their
         # per-row cost once (same trick as models/lda.py make_elbo)
         log_tabT = jnp.concatenate([logbeta_oldT, logbetaT], axis=1)
-
-        if use_pallas:
-            from ..kernels.lda_elbo import lda_elbo_tok
-
-            Kp = ((K + 127) // 128) * 128
-            boT = beta_old_full.T                         # [V, K] raw (CTM.jl:93)
-            # g2 = bo·(log(beta+eps) − log bo) with 0·log 0 = 0
-            g2T = jnp.where(boT > 0,
-                            boT * (logbetaT - logbeta_oldT), 0.0)
-            padt = lambda x: jnp.pad(x, ((0, 0), (0, Kp - K)))
-            tabT = jnp.concatenate([padt(boT), padt(g2T)], axis=1)
-            padk = lambda x: jnp.pad(x, ((0, 0), (0, Kp - K)))
-
-            def scan_body_pallas(acc, xs):
-                acc_doc, acc_tok = acc
-                t, c, dm, la, lao, v, lz = xs
-                tok = lda_elbo_tok(tabT[t], c, dm, padk(la), padk(lao),
-                                   interpret=pallas_interpret)
-                cd = jnp.sum(c, axis=-1)
-                diff = la - mu
-                quad = jnp.einsum("bi,ij,bj->b", diff, invsigma, diff)
-                e_peta = 0.5 * (logdet_inv - K * log2pi
-                                - jnp.sum(isd * v, -1) - quad)
-                bound = jnp.sum(aexp(la + 0.5 * v - lz[:, None]), -1) + lz - 1.0
-                e_qeta = mvnormal_diag_entropy(v)
-                acc_doc = kbn_add(acc_doc, jnp.sum(
-                    dm * (e_peta - cd * bound + e_qeta)))
-                return (acc_doc, kbn_add(acc_tok, tok)), None
 
         def scan_body(acc, xs):
             acc_doc, acc_tok = acc
@@ -383,16 +335,9 @@ def make_elbo(packed, K: int, chunk_docs: int, axis_name=None,
             n_rows = t_arr.shape[0]
             B = min(chunk_docs, n_rows)
             n_chunks = n_rows // B
-            from ..kernels.lda_elbo import fits_vmem as elbo_fits
-
-            body = (scan_body_pallas
-                    if use_pallas and B % 8 == 0
-                    and dt == jnp.float32
-                    and elbo_fits(t_arr.shape[1], ((K + 127) // 128) * 128)
-                    else scan_body)
             sh = lambda x: x.reshape((n_chunks, B) + x.shape[1:])
             acc, _ = jax.lax.scan(
-                body, acc,
+                scan_body, acc,
                 (sh(t_arr), sh(c_arr), sh(dm_arr),
                  sh(la_a), sh(lao_a), sh(v_a), sh(lz_a)),
             )
@@ -418,7 +363,7 @@ def make_elbo(packed, K: int, chunk_docs: int, axis_name=None,
             return kbn_pack(kbn_merge(total_doc, total_tok))
         return kbn_pack(kbn_psum(kbn_merge(total_doc, total_tok), axes))
 
-    return elbo
+    return highest_precision(elbo)
 
 
 def partition_spec(data_axis="data", vocab_axis: Optional[str] = None):

@@ -1,6 +1,6 @@
-"""Collaborative topic Poisson factorization — batch-synchronous CAVI on TPU.
+"""Collaborative topic Poisson factorization — batch-synchronous CAVI.
 
-TPU-native redesign of the reference CTPF (``src/CTPF.jl``,
+Redesign of the reference CTPF (``src/CTPF.jl``,
 Gopalan/Charlin/Blei) and its OpenCL twin (``src/gpuCTPF.jl``, 12
 kernels — one per Hebrew-letter Gamma variational parameter plus the
 phi/xi softmaxes).  Document content (terms) and user behavior
@@ -13,8 +13,8 @@ Design notes vs the reference:
 
 * phi and xi are recomputed inside the fused chunk body, never stored
   (the reference's warm-start identity, modelutils.jl:231-240).
-* The alef/he scatters (CTPF.jl:259-262, 274-277) are deterministic
-  segment-sums over vocab/user ids.
+* The alef/he scatters (CTPF.jl:259-262, 274-277) are segment-sums
+  over vocab/user ids (see ops/segment.py for their determinism).
 * **ELBO without the O(count) binomial sums**: the reference evaluates
   Σ_y pdf(Binom(c, φ), y)·lnΓ(y+1) per token/rating inside Elogpz /
   Elogpya / Elogpyb (CTPF.jl:116,127,138) *and* the exact multinomial
@@ -36,8 +36,9 @@ import jax.numpy as jnp
 from ..ops.packing import seg_loc_starts
 from ..ops.segment import count_scatter
 from ..utils.numerics import (
-    aexp, alog, asoftmax, digamma, dirichlet_ones, gamma_entropy, kbn_add, kbn_merge,
-    kbn_pack, kbn_psum, kbn_zero, l2norm, lgamma, masked_fixpoint,
+    aexp, alog, asoftmax, digamma, dirichlet_ones, gamma_entropy,
+    highest_precision, kbn_add, kbn_merge, kbn_pack, kbn_psum, kbn_zero,
+    l2norm, lgamma, masked_fixpoint,
 )
 
 # Gamma hyperpriors a..h = 0.1 (CTPF.jl:81)
@@ -106,6 +107,7 @@ def _xi(dg_he_d, dg_gimel, dg_zayin, log_dalet, log_het, log_vav,
     return et / z, eb / z
 
 
+@highest_precision
 def _estep_chunk(dg_alefT, dg_heT, log_bet, log_vav,
                  c_hyper, g_hyper, terms, counts, readers, ratings, doc_mask,
                  gimel, gimel_old, zayin, zayin_old, viter, vtol, V, U_seg,
@@ -172,7 +174,6 @@ def _estep_chunk(dg_alefT, dg_heT, log_bet, log_vav,
 
 def make_step(packed, K: int, viter: int, vtol: float, chunk_docs: int,
               axis_name=None, hyper: dict = HYPER,
-              use_pallas: Optional[bool] = None, pallas_interpret: bool = False,
               vocab_axis: Optional[str] = None, user_axis: Optional[str] = None,
               seq_axis: Optional[str] = None):
     """One CAVI sweep.  ``vocab_axis``/``user_axis`` shard alef [K, V]
@@ -185,20 +186,8 @@ def make_step(packed, K: int, viter: int, vtol: float, chunk_docs: int,
     U_seg = max(U, 1)
     a, b, c, d = hyper["a"], hyper["b"], hyper["c"], hyper["d"]
     e, f, g, h = hyper["e"], hyper["f"], hyper["g"], hyper["h"]
-    if use_pallas is None:
-        use_pallas = jax.default_backend() not in ("cpu",) and K >= 64
-    from .lda import _round_up_128
-    Kp = _round_up_128(K)
-    # the fused kernel needs doc tiles of >= 8 (f32 sublane) whose token+
-    # reader extent fits VMEM; otherwise fall back to the XLA body
-    from ..kernels.lda_estep import fits_vmem
-
-    if chunk_docs % 8 != 0 or not fits_vmem(packed.L + packed.Rmax, Kp):
-        use_pallas = False
-
     seg_starts = seg_loc_starts(packed)
     if seq_axis is not None:
-        use_pallas = False
         assert seg_starts is None, "token/reader-axis sharding requires dense packing"
 
     def step(state: CTPFState, terms, counts, readers, ratings, doc_mask):
@@ -223,51 +212,13 @@ def make_step(packed, K: int, viter: int, vtol: float, chunk_docs: int,
             )
             return (at + ati, ht + hti, gs + gsi, zs + zsi), (gi2, gio2, za2, zao2)
 
-        if use_pallas:
-            from ..kernels.ctpf_estep import ctpf_estep
-
-            ealefT = jnp.pad(jnp.exp(dg_alefT), ((0, 0), (0, Kp - K)))
-            eheT = jnp.pad(jnp.exp(dg_heT), ((0, 0), (0, Kp - K)))
-            padk = lambda x: jnp.pad(x, ((0, 0), (0, Kp - K)))
-            padv = lambda x: jnp.pad(x, (0, Kp - K))
-            inv_db = padv(1.0 / (state.dalet * state.bet))
-            inv_dv = padv(1.0 / (state.dalet * state.vav))
-            inv_hv = padv(1.0 / (state.het * state.vav))
-
-            def scan_body(carry, xs):
-                at, ht, gs, zs = carry
-                t, cnt, rd, rt, dm, gi, gio, za, zao = xs
-                gi2, gio2, za2, zao2, wa, wh = ctpf_estep(
-                    ealefT[t], eheT[rd], cnt, rt, dm,
-                    inv_db, inv_dv, inv_hv,
-                    padk(gi), padk(gio), padk(za), padk(zao),
-                    viter=viter, vtol=vtol, n_topics=K,
-                    c_hyper=float(c), g_hyper=float(g),
-                    interpret=pallas_interpret,
-                )
-                gi2, gio2 = gi2[:, :K], gio2[:, :K]
-                za2, zao2 = za2[:, :K], zao2[:, :K]
-                ati = count_scatter(wa[..., :K].reshape(-1, K),
-                                    t.reshape(-1), V)
-                hti = count_scatter(wh[..., :K].reshape(-1, K),
-                                    rd.reshape(-1), U_seg)
-                dmc = dm[:, None]
-                gsi = jnp.sum(gi2 * dmc, axis=0)
-                zsi = jnp.sum(za2 * dmc, axis=0)
-                return (at + ati, ht + hti, gs + gsi, zs + zsi), \
-                    (gi2, gio2, za2, zao2)
-        else:
-            scan_body = scan_body_xla
-
         def sweep(t_a, c_a, rd_a, rt_a, dm_a, gi_a, gio_a, za_a, zao_a, carry):
             n_rows = t_a.shape[0]
             B = min(chunk_docs, n_rows)
             n_chunks = n_rows // B
-            # kernel tiles need >= 8 docs; odd sweep sizes use the XLA body
-            body = scan_body if not use_pallas or B % 8 == 0 else scan_body_xla
             sh = lambda x: x.reshape((n_chunks, B) + x.shape[1:])
             carry, ys = jax.lax.scan(
-                body, carry,
+                scan_body_xla, carry,
                 (sh(t_a), sh(c_a), sh(rd_a), sh(rt_a), sh(dm_a),
                  sh(gi_a), sh(gio_a), sh(za_a), sh(zao_a)),
             )
@@ -346,7 +297,7 @@ def make_step(packed, K: int, viter: int, vtol: float, chunk_docs: int,
             elbo=state.elbo,
         )
 
-    return step
+    return highest_precision(step)
 
 
 def make_elbo(packed, K: int, chunk_docs: int, axis_name=None,
@@ -522,13 +473,13 @@ def make_elbo(packed, K: int, chunk_docs: int, axis_name=None,
         return kbn_pack(kbn_add(
             total, e_pbeta + e_qbeta_ent + e_peta + e_qeta_ent))
 
-    return elbo
+    return highest_precision(elbo)
 
 
 def scores(state: CTPFState, doc_mask=None) -> jax.Array:
     """Dense recommendation scores Eeta'·(Etheta+Eepsilon) (CTPF.jl:381-386).
 
-    Returns [M_pad, U_seg]; one MXU matmul instead of the reference's
+    Returns [M_pad, U_seg]; one matmul instead of the reference's
     per-doc host loop.
     """
     Eeta = state.he / state.vav[:, None]                 # [K, U]

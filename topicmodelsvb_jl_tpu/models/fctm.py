@@ -1,6 +1,6 @@
-"""Filtered correlated topic model — batch-synchronous CAVI on TPU.
+"""Filtered correlated topic model — batch-synchronous CAVI.
 
-TPU-native redesign of the reference fCTM (``src/fCTM.jl``): CTM plus
+Redesign of the reference fCTM (``src/fCTM.jl``): CTM plus
 fLDA's per-token Bernoulli content/background switch (tau/kappa).
 Note two reference quirks mirrored deliberately:
 
@@ -23,8 +23,9 @@ from ..ops.packing import seg_loc_starts
 from ..ops.segment import count_scatter
 from ..utils.numerics import (
     EPSILON, aexp, alog, asoftmax, bernoulli_entropy, categorical_entropy,
-    dirichlet_ones, kbn_add, kbn_merge, kbn_pack, kbn_psum, kbn_zero, l2norm,
-    logsumexp, masked_fixpoint, mvnormal_diag_entropy,
+    dirichlet_ones, highest_precision, kbn_add, kbn_merge, kbn_pack,
+    kbn_psum, kbn_zero, l2norm, logsumexp, masked_fixpoint,
+    mvnormal_diag_entropy,
 )
 
 
@@ -69,6 +70,7 @@ def _phi(logbeta_d, tau, lam, softmax=jax.nn.softmax):
     return softmax(tau[..., None] * logbeta_d + lam[:, None, :], axis=-1)
 
 
+@highest_precision
 def _estep_chunk(logbetaT, kappa_full, eta, mu, invsigma, terms, counts,
                  doc_mask, lam, lam_old, vsq, logzeta, tau, tau_old,
                  viter, vtol, niter, ntol, V, seq_axis=None):
@@ -262,7 +264,7 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
             tau=tau, tau_old=tau_old, elbo=state.elbo,
         )
 
-    return step
+    return highest_precision(step)
 
 
 def make_elbo(packed, K: int, chunk_docs: int, axis_name=None,
@@ -373,7 +375,7 @@ def make_elbo(packed, K: int, chunk_docs: int, axis_name=None,
             return kbn_pack(kbn_merge(total_doc, total_tok))
         return kbn_pack(kbn_psum(kbn_merge(total_doc, total_tok), axes))
 
-    return elbo
+    return highest_precision(elbo)
 
 
 def partition_spec(data_axis="data", vocab_axis: Optional[str] = None,

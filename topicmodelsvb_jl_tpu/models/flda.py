@@ -1,6 +1,6 @@
-"""Filtered latent Dirichlet allocation — batch-synchronous CAVI on TPU.
+"""Filtered latent Dirichlet allocation — batch-synchronous CAVI.
 
-TPU-native redesign of the reference fLDA (``src/fLDA.jl``, the author's
+Redesign of the reference fLDA (``src/fLDA.jl``, the author's
 own model, fLDA/fLDA.pdf): LDA plus a per-token Bernoulli switch
 deciding content-word (topic-generated) vs background-word (drawn from
 a corpus-wide distribution kappa), with global mixture weight eta.
@@ -27,8 +27,9 @@ from ..ops.packing import seg_loc_starts
 from ..ops.segment import count_scatter
 from ..utils.numerics import (
     EPSILON, alog, asoftmax, bernoulli_entropy, categorical_entropy,
-    digamma, dirichlet_entropy, dirichlet_ones, finite, kbn_add, kbn_merge, kbn_pack,
-    kbn_psum, kbn_zero, kbn_zeros, l2norm, lgamma, masked_fixpoint,
+    digamma, dirichlet_entropy, dirichlet_ones, finite, highest_precision,
+    kbn_add, kbn_merge, kbn_pack, kbn_psum, kbn_zero, kbn_zeros, l2norm,
+    lgamma, masked_fixpoint,
 )
 
 
@@ -71,6 +72,7 @@ def _phi(logbeta_d, tau, El, softmax=jax.nn.softmax):
     return softmax(tau[..., None] * logbeta_d + El[:, None, :], axis=-1)
 
 
+@highest_precision
 def _estep_chunk(logbetaT, kappa_full, eta, alpha, terms, counts, doc_mask,
                  gamma, El, El_old, tau, tau_old, viter, vtol, V,
                  seq_axis=None, elogtheta_f64: bool = False):
@@ -142,30 +144,20 @@ def _estep_chunk(logbetaT, kappa_full, eta, alpha, terms, counts, doc_mask,
 
 def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
               chunk_docs: int, axis_name=None,
-              use_pallas: Optional[bool] = None, pallas_interpret: bool = False,
               vocab_axis: Optional[str] = None, seq_axis: Optional[str] = None,
               elogtheta_f64: bool = False):
     """``vocab_axis`` shards beta [K, V] and kappa [V] storage (TP, like
     models/lda.py): all_gather in, reduce_scatter + psum'd sums out.
     ``seq_axis`` shards every document's token axis (and the tau state)
     over that mesh axis (SP analogue, SURVEY §5.7b); incompatible with
-    bucketed packing and the Pallas body, like models/lda.py."""
+    bucketed packing, like models/lda.py."""
     V = packed.V
     seg_starts = seg_loc_starts(packed)
-    if use_pallas is None:
-        # the kernel pads the topic axis to 128 lanes; below K=64 the
-        # padding waste outweighs the fused fixpoint's IO win
-        use_pallas = jax.default_backend() not in ("cpu",) and K >= 64
-    if elogtheta_f64:
-        use_pallas = False   # the kernel's in-kernel digamma series is f32
-        if not jax.config.jax_enable_x64:
-            raise ValueError(
-                "elogtheta_f64 requires jax_enable_x64 (see models/lda.py)")
+    if elogtheta_f64 and not jax.config.jax_enable_x64:
+        raise ValueError(
+            "elogtheta_f64 requires jax_enable_x64 (see models/lda.py)")
     if seq_axis is not None:
-        use_pallas = False
         assert seg_starts is None, "token-axis sharding requires dense packing"
-    from .lda import _round_up_128
-    Kp = _round_up_128(K)
 
     def step(state: FLDAState, terms, counts, doc_mask, M_total, C_total):
         eps = jnp.asarray(EPSILON, state.beta.dtype)
@@ -176,55 +168,6 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
         else:
             beta_full, kappa_full_v = state.beta, state.kappa
         logbetaT = jnp.log(beta_full + eps).T
-
-        from ..kernels.lda_estep import fits_vmem
-        from ..kernels.flda_estep import flda_estep
-
-        logbetaT_p = jnp.pad(logbetaT, ((0, 0), (0, Kp - K)))
-        alpha_p = jnp.pad(state.alpha, (0, Kp - K))
-        # Elogtheta pad lanes pinned to −1e30 so the in-kernel
-        # softmax zeroes padded topics (see kernels/flda_estep.py)
-        padel = lambda a: jnp.pad(a, ((0, 0), (0, Kp - K)),
-                                  constant_values=-1e30)
-        padk = lambda a: jnp.pad(a, ((0, 0), (0, Kp - K)))
-
-        # kappa rides in pad lane K of the log-beta table so the E-step
-        # pays ONE gather per chunk, not two (the kernel never reads pad
-        # lanes unmasked: Elogtheta pads are −1e30, so phi pads are 0)
-        if K < Kp:
-            tab_p = logbetaT_p.at[:, K].set(kappa_full_v)
-
-        def scan_body_pallas(carry, xs):
-            bt, kt, es, tc = carry
-            t, c, dm, g, el, elo, ta, tao = xs
-            if K < Kp:
-                lb = tab_p[t]
-                kd = lb[..., K]
-            else:           # no spare lane — two gathers (rare config)
-                lb = logbetaT_p[t]
-                kd = kappa_full_v[t]
-            g2, el2, elo2, ta2, tao2, wb, wk = flda_estep(
-                lb, kd, c, dm, alpha_p, state.eta,
-                padk(g), padel(el), padel(elo), ta, tao,
-                viter=viter, vtol=vtol, n_topics=K,
-                interpret=pallas_interpret,
-            )
-            g2, el2, elo2 = g2[:, :K], el2[:, :K], elo2[:, :K]
-            # fused single scatter (see _estep_chunk): the kappa weight
-            # rides in a padded topic lane (wb pad lanes are exact zeros)
-            if K < Kp:
-                wf = wb.at[..., K].set(wk)
-                stat = count_scatter(wf.reshape(-1, Kp), t.reshape(-1), V)
-                bti, kti = stat[:, :K], stat[:, K]
-            else:
-                wf = jnp.concatenate([wb, wk[..., None]], axis=-1)
-                stat = count_scatter(wf.reshape(-1, Kp + 1),
-                                     t.reshape(-1), V)
-                bti, kti = stat[:, :K], stat[:, K]
-            esi = jnp.sum(el2 * dm[:, None], axis=0)
-            tci = jnp.sum(ta2 * c)
-            return (bt + bti, kt + kti, kbn_add(es, esi), tc + tci), \
-                (g2, el2, elo2, ta2, tao2)
 
         def scan_body_xla(carry, xs):
             bt, kt, es, tc = carry
@@ -240,13 +183,9 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
             n_rows = t_a.shape[0]
             B = min(chunk_docs, n_rows)
             n_chunks = n_rows // B
-            body = (scan_body_pallas
-                    if use_pallas and B % 8 == 0
-                    and fits_vmem(t_a.shape[1], Kp)
-                    else scan_body_xla)
             sh = lambda a: a.reshape((n_chunks, B) + a.shape[1:])
             carry, ys = jax.lax.scan(
-                body, carry,
+                scan_body_xla, carry,
                 (sh(t_a), sh(c_a), sh(dm_a), sh(g_a),
                  sh(el_a), sh(elo_a), sh(ta_a), sh(tao_a)),
             )
@@ -317,20 +256,12 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
             elbo=state.elbo,
         )
 
-    return step
+    return highest_precision(step)
 
 
 def make_elbo(packed, K: int, chunk_docs: int, axis_name=None,
-              vocab_axis: Optional[str] = None, seq_axis: Optional[str] = None,
-              use_pallas: Optional[bool] = None, pallas_interpret: bool = False):
-    """ELBO with the reference's *_old recompute semantics (fLDA.jl:109-118).
-
-    ``use_pallas``/``pallas_interpret`` are accepted for signature
-    uniformity and ignored: the fused fLDA ELBO kernel measured exact
-    PARITY with this XLA pass (both are transcendental-bound through
-    the tau exponent) and was retired after its sunset date (analysis
-    preserved in ROADMAP.md)."""
-    del use_pallas, pallas_interpret  # retired experimental path (ROADMAP.md)
+              vocab_axis: Optional[str] = None, seq_axis: Optional[str] = None):
+    """ELBO with the reference's *_old recompute semantics (fLDA.jl:109-118)."""
     V = packed.V
 
     seg_starts = seg_loc_starts(packed)
@@ -436,7 +367,7 @@ def make_elbo(packed, K: int, chunk_docs: int, axis_name=None,
             return kbn_pack(kbn_merge(total_doc, total_tok))
         return kbn_pack(kbn_psum(kbn_merge(total_doc, total_tok), axes))
 
-    return elbo
+    return highest_precision(elbo)
 
 
 def partition_spec(data_axis="data", vocab_axis: Optional[str] = None,

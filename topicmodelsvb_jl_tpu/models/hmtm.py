@@ -1,4 +1,4 @@
-"""Hidden Markov topic model — structured VB on TPU.
+"""Hidden Markov topic model — structured VB.
 
 The reference ships HMTM only as an unfinished research stub
 (``HMTM/HMTM.jl``): its fully-factorised variational family puts a
@@ -50,13 +50,14 @@ Like the reference (which enumerates ``doc.terms`` and ignores
 vector is one token *in order*; HMTM therefore wants un-``condense``d
 corpora.
 
-TPU mapping: documents are packed dense ``[B, L]`` and the per-position
-recursions run as ``lax.scan`` over the token axis with batched
-``[B,K,K]×[B,K]`` contractions — the per-doc transition matrices ride
-the MXU.  Token-axis (seq) sharding is deliberately not offered: the
-forward recursion is sequential in ``n``, so a token shard boundary
-would serialise an ICI round-trip per position; the long-doc lever here
-is length-bucketed packing (the model is bucketed like LDA).
+Device mapping: documents are packed dense ``[B, L]`` and the
+per-position recursions run as ``lax.scan`` over the token axis with
+batched ``[B,K,K]×[B,K]`` contractions (at full f32 precision, see
+utils/numerics.highest_precision).  Token-axis (seq) sharding is
+deliberately not offered: the forward recursion is sequential in ``n``,
+so a token shard boundary would serialise a cross-device round trip per
+position; the long-doc lever here is length-bucketed packing (the model
+is bucketed like LDA).
 """
 
 from __future__ import annotations
@@ -71,7 +72,8 @@ from ..ops.newton import dirichlet_newton
 from ..ops.packing import seg_loc_starts
 from ..ops.segment import count_scatter
 from ..utils.numerics import (
-    EPSILON, aexp, alog, digamma, dirichlet_entropy, dirichlet_ones, kbn_add, kbn_pack,
+    EPSILON, aexp, alog, digamma, dirichlet_entropy, dirichlet_ones,
+    highest_precision, kbn_add, kbn_pack,
     kbn_psum, kbn_zero, kbn_zeros, l2norm, lgamma, masked_fixpoint,
 )
 
@@ -115,12 +117,8 @@ def init(key: jax.Array, packed, K: int, dtype=jnp.float32) -> HMTMState:
 
 import os as _os
 
-# Token-axis scan unroll factor (default 1 = plain scan).  MEASURED
-# NEGATIVE RESULT (round 4, v5e, NSF K=25 chunk=1024): unroll=1 0.474,
-# 4 0.597, 8 0.889, 16 1.322 s/iter — monotonically worse, and the
-# chunk-size sweep (256..4096 flat per-doc) already rules out
-# loop-dispatch latency; the scan is bandwidth/compute-bound, so
-# unrolling only bloats the loop body.  Kept env-tunable for re-runs.
+# Token-axis scan unroll factor (default 1 = plain scan), env-tunable
+# for measurement; larger factors have not been measured on the H100.
 _SCAN_UNROLL = max(1, int(_os.environ.get("HMTM_SCAN_UNROLL", "1") or 1))
 
 
@@ -184,13 +182,10 @@ def _backward_stats(a, c, A, Bv, tmask, with_r: bool):
     be_last = jnp.ones((B_, K), dtype)
     xi0 = jnp.zeros((B_, K, K), dtype)
 
-    # xi stays an in-carry accumulator.  MEASURED NEGATIVE RESULT
-    # (round 4, v5e, NSF K=25): deferring it — xi_sum = A ∘
-    # einsum("nbi,nbl->bil", g, a) after the scan, shrinking the carry
-    # to [B,K] — is algebraically identical but 17% SLOWER end-to-end
-    # (0.486 vs 0.416 s/iter): the stacked masked-g [L,B,K] output
-    # (50 MB physically tiled per chunk) spills to HBM on every
-    # fixpoint pass, while the [B,K,K] carry RMW stays in VMEM.
+    # xi stays an in-carry [B,K,K] accumulator.  Deferring it — xi_sum =
+    # A ∘ einsum("nbi,nbl->bil", g, a) after the scan — is algebraically
+    # identical but stacks a masked-g [L,B,K] output on every fixpoint
+    # pass; which form is faster on the H100 is not measured.
     def step(carry, xs):
         be_n, xi_sum = carry
         a_prev, a_n, B_n, c_n, m_n = xs
@@ -215,6 +210,7 @@ def _backward_stats(a, c, A, Bv, tmask, with_r: bool):
     return r0, xi_sum, jnp.moveaxis(r, 0, 1)          # [B, L, K]
 
 
+@highest_precision
 def _estep_chunk(betaT_eps, eta, alpha, terms, tmask, doc_mask, tau, gamma,
                  viter, vtol, V):
     """Fused per-chunk E-step: viter chain fixpoint + sufficient stats.
@@ -364,7 +360,7 @@ def make_step(packed, K: int, viter: int, vtol: float, niter: int, ntol: float,
         return HMTMState(eta=eta_new, alpha=alpha_new, beta=beta_new,
                          tau=tau, gamma=gamma, elbo=state.elbo)
 
-    return step
+    return highest_precision(step)
 
 
 def make_elbo(packed, K: int, chunk_docs: int, axis_name=None,
@@ -436,7 +432,7 @@ def make_elbo(packed, K: int, chunk_docs: int, axis_name=None,
             axes = (axes,)
         return kbn_pack(kbn_psum(acc, axes))
 
-    return elbo
+    return highest_precision(elbo)
 
 
 def partition_spec(data_axis="data", vocab_axis: Optional[str] = None):

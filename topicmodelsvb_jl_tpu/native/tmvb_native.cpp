@@ -1,6 +1,6 @@
 // Native host-side data layer.
 //
-// TPU-native counterpart of the reference's host data path: where
+// Counterpart of the reference's host data path: where
 // TopicModelsVB.jl parses delimited doc blocks in Julia (readcorp,
 // Corpus.jl:277-325) and flattens the ragged corpus for the device
 // (update_buffer!, modelutils.jl:370-494), this module does the

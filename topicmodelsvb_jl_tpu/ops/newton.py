@@ -22,7 +22,9 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from ..utils.numerics import EPSILON, digamma, finite, l2norm, trigamma
+from ..utils.numerics import (
+    EPSILON, digamma, finite, highest_precision, l2norm, trigamma,
+)
 
 
 def _exp_safe(x: jax.Array) -> jax.Array:
@@ -58,19 +60,22 @@ def _backtrack_rho(x: jax.Array, p: jax.Array, strict: bool) -> jax.Array:
     return jnp.where(jnp.isfinite(ratio), rho, jnp.ones_like(rho))
 
 
+@highest_precision
 def spd_cg_solve(matvec, b: jax.Array, inv_diag: jax.Array,
                  active: jax.Array, maxiter: int, rtol: float) -> jax.Array:
     """Matrix-free batched Jacobi-preconditioned CG for SPD systems.
 
-    TPU-native replacement for the reference's workgroup Gauss–Jordan
+    Replacement for the reference's workgroup Gauss–Jordan
     (``LINSOLVE_c``, utils.jl:60-90) in the CTM lambda Newton: the
     [B, K, K] operator is never materialised — per iteration the only
     non-elementwise work is ``matvec(p)``, which for the CTM neg-Hessian
-    Σ⁻¹ + diag(e) is a single [B,K]@[K,K] MXU matmul — so HBM traffic is
+    Σ⁻¹ + diag(e) is a single [B,K]@[K,K] matmul — so memory traffic is
     O(B·K) per iteration versus the O(B·K²) per elimination step of a
     dense factorisation.  Krylov exactness bounds iterations at K;
     Jacobi preconditioning makes the typical count far smaller.
     Converged/inactive batch lanes freeze (vmap/while semantics).
+    The matvec runs at full f32 precision (never TF32): the CG residual
+    test and the oracle parity of CTM/fCTM depend on it.
     """
     bnorm2 = jnp.sum(b * b, axis=-1)
     tol2 = (rtol * rtol) * bnorm2
@@ -107,11 +112,10 @@ def spd_cg_solve(matvec, b: jax.Array, inv_diag: jax.Array,
 def spd_solve(A: jax.Array, b: jax.Array) -> jax.Array:
     """Batched SPD solve by Gauss–Jordan elimination without pivoting.
 
-    The TPU-native twin of the reference's OpenCL ``LINSOLVE_c``
+    The twin of the reference's OpenCL ``LINSOLVE_c``
     (utils.jl:60-90) — its own comment notes pivoting is unnecessary for
-    SPD systems (utils.jl:56-58).  Implemented with plain HLO ops (no
-    LAPACK-style custom call, which crashes some TPU runtimes when
-    nested inside scan/while loops).  A: [B, K, K], b: [B, K] → [B, K].
+    SPD systems (utils.jl:56-58).  Implemented with plain HLO ops, so no
+    LAPACK-style custom call sits inside the scan/while loops.  A: [B, K, K], b: [B, K] → [B, K].
     """
     K = A.shape[-1]
     M = jnp.concatenate([A, b[..., None]], axis=-1)    # [B, K, K+1]
@@ -142,8 +146,9 @@ def dirichlet_newton(
     ulp of O(1) quantities instead of O(M·|Elogtheta|): at corpus scale
     the M-scaled form's absolute rounding (~ulp(6e5) ≈ 0.06) turns into
     an alpha* jitter of relative ~α²·ulp that the bound re-amplifies by
-    Elogtheta_sum — a measured 1e3-1e4 per-iteration ELBO wobble
-    (RESULTS.md "tol=1.0 semantics", round 4).  ``Elogtheta_sum_lo``
+    Elogtheta_sum — an f32 ELBO wobble of 1e3-1e4 per iteration at NSF
+    scale, which is why the callers carry Elogtheta_sum as a compensated
+    (hi, lo) pair.  ``Elogtheta_sum_lo``
     optionally carries the compensation half of a Kahan-accumulated sum
     (models/lda.py's step carry) into the mean at full precision.
     """
@@ -248,7 +253,7 @@ def ctm_lambda_newton(
         expo = _exp_safe(lam + 0.5 * vsq - logzeta[:, None]) * C[:, None]  # [B, K]
         grad = (mu - lam) @ invsigma + phi_counts - expo
         # neg hessian: invsigma + diag(expo) (SPD — utils.jl:56-58);
-        # solved matrix-free: the matvec is one [B,K]@[K,K] MXU matmul
+        # solved matrix-free: the matvec is one [B,K]@[K,K] matmul
         # plus an elementwise product, so no [B,K,K] tensor exists
         step = spd_cg_solve(
             lambda x: x @ invsigma + expo * x, grad,

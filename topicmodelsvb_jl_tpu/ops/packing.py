@@ -1,4 +1,4 @@
-"""Ragged→dense corpus packing for TPU.
+"""Ragged→dense corpus packing for the device.
 
 The reference GPU path flattens the ragged corpus into CSR-style
 concatenated streams plus a precomputed inverted index
@@ -95,7 +95,7 @@ def pack_corpus(
 ) -> PackedCorpus:
     """Pack a checked corpus into dense padded arrays.
 
-    ``pad_multiple`` rounds the token axis L (lane friendliness on TPU);
+    ``pad_multiple`` rounds the token axis L;
     ``docs_multiple`` rounds the doc axis (must absorb chunk × shard
     divisibility — callers pass ``chunk_docs * n_data_shards``).
     """
@@ -196,7 +196,7 @@ def bucketize(
     rounded up to ``chunk·n_shards``; appended padding rows map to -1.
     Replaces the reference GPU path's single flat CSR token stream
     (modelutils.jl:370-397) — where OpenCL tolerated raggedness with
-    per-doc offsets, the TPU wants dense tiles, so docs of similar
+    per-doc offsets, XLA wants dense tiles, so docs of similar
     length share a tile width.
     """
     M_src = terms.shape[0]
@@ -356,7 +356,7 @@ def trim_packed(packed: PackedCorpus, chunk_rows: int = 65536,
     domain.  Per-iteration cost is O(V·K) in the M-step normalize and
     the ELBO table builds, so a corpus whose id space is sparse pays
     every sweep for vocabulary it never touches; trimming is the root
-    fix (RESULTS.md "Large-V", "where the step's V-dependence lives").
+    fix.
 
     Returns ``(trimmed, used_ids)``: ``trimmed.terms`` are re-keyed to
     ``[0, len(used_ids))`` densely, and ``used_ids`` maps new → old id,
@@ -453,8 +453,7 @@ def route_packed(packed: PackedCorpus, n_shards: int,
     grouped by the vocab shard that owns their id (routed tensor
     parallelism — the design that divides the E-step's per-device O(V)
     WORK by the shard count, where plain ``vocab_axis`` TP only divides
-    beta *storage* and all-gathers it back; RESULTS.md "when vocab-TP
-    pays").  Shard ``s`` owns the contiguous global-id block
+    beta *storage* and all-gathers it back).  Shard ``s`` owns the contiguous global-id block
     ``[s·Vs, (s+1)·Vs)``, matching beta's ``P(None, vocab)`` storage
     sharding, so no id permutation leaks into the model state.
 

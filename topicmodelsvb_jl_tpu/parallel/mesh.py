@@ -14,8 +14,10 @@ wrapped in ``shard_map`` over a ``jax.sharding.Mesh``:
 * A second ``vocab`` axis is reserved for sharding beta over V (TP) for
   very large vocabularies.
 
-A 1-device mesh uses the exact same code path as an N-device pod slice,
-so single-chip and multi-chip execution never diverge.
+A 1-device mesh uses the exact same code path as an N-device mesh, so
+single-device and multi-device execution never diverge.  Every GPU of a
+host reaches every other at the same rate, so the mesh shape follows
+the algorithm alone.
 """
 
 from __future__ import annotations

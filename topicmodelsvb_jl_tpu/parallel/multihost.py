@@ -1,12 +1,13 @@
 """Multi-host initialisation and corpus sharding helpers.
 
 The reference is strictly single-process (SURVEY §2.3); this module is
-the build's multi-host entry point.  Workflow on an N-host TPU slice:
+the build's multi-host entry point.  Workflow on N GPU processes (one
+per host, or one per card):
 
     import topicmodelsvb_jl_tpu as tm
     from topicmodelsvb_jl_tpu.parallel import multihost
 
-    multihost.initialize()                  # jax.distributed handshake
+    multihost.initialize("host0:1234", N, i)  # jax.distributed handshake
     corp = tm.readcorp(...)                 # every host loads/receives the corpus
     model = tm.LDA(corp, K)                 # mesh spans all hosts' devices
     model.train(...)
@@ -14,8 +15,9 @@ the build's multi-host entry point.  Workflow on an N-host TPU slice:
 Every host runs the same program; `make_mesh` already builds the mesh
 over `jax.devices()` (global across hosts once initialised), and the
 shard_map'd steps place each host's addressable shard of the doc axis
-locally.  Sufficient-statistic psums ride ICI within a slice and DCN
-across slices — XLA's collective layer is the backend (SURVEY §5.8).
+locally.  Sufficient-statistic psums ride NVLink within a host and the
+network across hosts — XLA's collective layer (NCCL on GPUs) is the
+backend (SURVEY §5.8).
 """
 
 from __future__ import annotations
@@ -30,9 +32,11 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """`jax.distributed.initialize` with env-var defaults.
 
-    On Cloud TPU the arguments are auto-detected; pass them explicitly
-    for other launchers. Safe to call once per process, before any
-    device computation.
+    A GPU host detects none of them: every process must pass the
+    coordinator's ``host:port`` (any free port on process 0's host),
+    the number of processes and its own id, unless a cluster launcher
+    (e.g. SLURM) that JAX recognises provides them.  Safe to call once
+    per process, before any device computation.
     """
     kwargs = {}
     if coordinator_address is not None:

@@ -1,7 +1,7 @@
 """Command-line training entry point (SURVEY §5.6).
 
 The reference has no config system — everything is ``train!`` kwargs
-(LDA.jl:161).  This CLI exposes the same knobs (TrainConfig), the TPU
+(LDA.jl:161).  This CLI exposes the same knobs (TrainConfig), the
 runtime knobs (RuntimeConfig), model and corpus selection, and the
 JSONL metrics sink, so any training run — including the benchmark — is
 reproducible from one documented command:
@@ -32,7 +32,7 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m topicmodelsvb_jl_tpu.train",
-        description="Train a topic model (TPU-native TopicModelsVB).",
+        description="Train a topic model (TopicModelsVB on JAX).",
     )
     p.add_argument("--model", required=True,
                    choices=["lda", "flda", "ctm", "fctm", "ctpf", "dtm",
@@ -94,12 +94,14 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--cgiter", type=int, default=20,
                    help="DTM betahat CG iterations per sweep")
 
-    # ── RuntimeConfig (TPU knobs) ──
+    # ── RuntimeConfig (execution knobs) ──
     r = p.add_argument_group("runtime")
     r.add_argument("--chunk-docs", type=int, default=None)
     r.add_argument("--pad-multiple", type=int, default=None)
     r.add_argument("--dtype", default=None, choices=["float32", "float64"])
-    r.add_argument("--no-pallas", action="store_true")
+    r.add_argument("--no-pallas", action="store_true",
+                   help="lda: run the XLA E-step body instead of the "
+                        "fused kernel")
     r.add_argument("--metrics", default=None, help="JSONL metrics sink path")
     r.add_argument("--profile-dir", default=None)
     r.add_argument("--checkpoint-every", type=int, default=None)
@@ -110,8 +112,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "re-converges rather than bit-reproducing)")
     r.add_argument("--elogtheta-f64", action="store_true",
                    help="lda/flda: run the per-doc gamma->Elogtheta "
-                        "digamma channel in f64 (13-31x smaller noise "
-                        "at the tol=1.0 stop, ~3x step cost; forces "
+                        "digamma channel in f64 (less f32 noise at the "
+                        "tol=1.0 stop, at a step cost; forces "
                         "--dtype float32 state with x64 enabled)")
     r.add_argument("--n-devices", type=int, default=None,
                    help="limit the mesh to this many devices")
@@ -127,12 +129,12 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--num-processes", type=int, default=None)
     d.add_argument("--process-id", type=int, default=None)
 
-    # ── streaming / online (host-resident corpus; every model but dtm) ──
+    # ── streaming / online (host-resident corpus; every model) ──
     s = p.add_argument_group("streaming")
     s.add_argument("--streaming", action="store_true",
                    help="host-resident corpus+state, device memory "
-                        "O(batch) (Streaming{LDA,FLDA,CTM,FCTM,CTPF,HMTM}; "
-                        "any --model except dtm)")
+                        "O(batch) (Streaming{LDA,FLDA,CTM,FCTM,CTPF,HMTM,"
+                        "DTM}; dtm needs a corpus with stamps)")
     s.add_argument("--online", action="store_true",
                    help="per-minibatch SVI-schedule updates (implies "
                         "--streaming); --iter counts epochs")
@@ -416,6 +418,9 @@ def _run_streaming(args, corp, runtime, mesh=None) -> dict:
 
 
 def main(argv=None) -> int:
+    from .utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     summary = run(argv)
     print(json.dumps({k: v for k, v in summary.items()}))
     return 0

@@ -7,8 +7,9 @@ constructor initialisations.  Here those knobs become two dataclasses:
 * :class:`TrainConfig` mirrors the reference ``train!`` kwargs, with the
   same names and defaults (``iter=150, tol=1.0, niter=1000, ntol=1/K²,
   viter=10, vtol=1/K², checkelbo=1, printelbo=True``).
-* :class:`RuntimeConfig` holds the TPU-side knobs that have no reference
-  counterpart: doc-chunk size, padding multiple, dtype policy, mesh shape.
+* :class:`RuntimeConfig` holds the execution knobs that have no
+  reference counterpart: doc-chunk size, padding multiple, dtype policy,
+  mesh shape.
 """
 
 from __future__ import annotations
@@ -51,42 +52,40 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
-    """TPU execution knobs (no reference counterpart)."""
+    """Execution knobs (no reference counterpart).
 
-    # docs per E-step chunk (bounds [B, L, K] HBM use).  1024 is right
-    # for the gather/scatter-bound models (LDA/fLDA/CTPF); the Newton-
-    # heavy CTM/fCTM run ~25% faster at 2048 — the per-chunk while-loop
-    # latency amortizes over more documents (measured, bench_ctm.py)
+    The defaults of ``chunk_docs`` (and the CTM/fCTM 2048 in api.py),
+    ``pad_multiple`` and ``bucket_pad`` were tuned on earlier hardware
+    and are not yet measured on the H100 (PERF.md lists them).
+    """
+
+    # docs per E-step chunk (bounds the [B, L, K] device-memory use);
+    # the Newton-heavy CTM/fCTM default to 2048 (api._preferred_chunk)
+    # to amortize their per-chunk while-loop latency over more documents
     chunk_docs: int = 1024
-    pad_multiple: int = 64        # token-axis padding multiple (lane friendliness)
-    # per-segment token-width multiple under bucketed packing; 8 (the f32
-    # sublane count) measured 15% faster than 32 at NSF K=100 — every
-    # padded token slot costs full gather+kernel+scatter row work
+    pad_multiple: int = 64        # token-axis padding multiple
+    # per-segment token-width multiple under bucketed packing: every
+    # padded token slot costs full gather + E-step + scatter row work,
+    # so the multiple is kept small (the fused E-step kernel needs 8)
     bucket_pad: int = 8
     dtype: str = "float32"        # compute dtype; "float64" for the CPU oracle
     data_axis: str = "data"       # mesh axis docs are sharded over
     vocab_axis: str = "vocab"     # mesh axis beta may be sharded over (TP)
     mesh_shape: Optional[tuple] = None  # None → all devices on data axis
-    # fused Pallas E-step: True = auto (TPU backend and K >= 64),
-    # False = force the pure-XLA body everywhere
+    # fused LDA E-step kernel: True = automatic choice (GPU backend,
+    # K >= 64, segment fits; kernels/lda_estep.choose_estep), False =
+    # force the pure-XLA body everywhere
     use_pallas: bool = True
     # evaluate the per-doc gamma → Elogtheta digamma channel in f64 with
-    # f32 cast-back (the token-level [B, L, K] math stays f32).  The
-    # round-4 tol=1.0 accounting attributed the residual f32 training-
-    # arithmetic noise floor to exactly this channel; measured round 5
-    # (RESULTS.md, bench_f64_channel.py): the noise firing at the
-    # tol=1.0 stop shrinks 13× at NSF planted scale (−662 → −50), at
-    # ~3× step cost vs the production Pallas path (TPU f64 digamma is
-    # software-emulated) — an accuracy knob, not a default.  Requires
-    # jax_enable_x64 (checked at model build); forces the XLA E-step
-    # body (the Pallas kernel's in-kernel digamma series is f32).
+    # f32 cast-back (the token-level [B, L, K] math stays f32).  This
+    # channel carries the residual f32 training noise that fires the
+    # tol=1.0 stop (bench_f64_channel.py measures it); an accuracy knob,
+    # not a default.  Requires jax_enable_x64 (checked at model build);
+    # forces the XLA E-step body (the kernel's digamma series is f32).
     elogtheta_f64: bool = False
     metrics_path: Optional[str] = None  # JSONL per-iteration metrics sink
     profile_dir: Optional[str] = None   # jax.profiler capture directory
     profile_steps: int = 3              # steady steps to capture
-    # chip peak FLOP/s for the MFU figure in Trainer.summary(); default is
-    # TPU v5e f32 (~49.4e12 on the MXU per chip). 0 disables MFU.
-    peak_flops: float = 49.4e12
     # checkpoint-every-N-outer-iterations during train(); 0 disables.
     # Files go to checkpoint_dir/ckpt_iter{k}. (SURVEY §5.3 recovery story.)
     checkpoint_every: int = 0

@@ -1,6 +1,6 @@
 """Numeric utilities and constants.
 
-TPU-native re-implementation of the reference's numeric layer
+Re-implementation of the reference's numeric layer
 (TopicModelsVB.jl ``src/utils.jl``):
 
 * ``EPSILON`` underflow guard (utils.jl:3) — ``eps(1e-14) ≈ 1.6e-30``.
@@ -10,17 +10,18 @@ TPU-native re-implementation of the reference's numeric layer
 * Dirichlet entropy closed form (utils.jl:163-180).
 * digamma/trigamma — the reference hand-rolls an OpenCL digamma
   (utils.jl:21-53); here f32 digamma/lgamma/log/exp get ~2-ULP
-  Cephes-style constructions (TPU's VPU approximations are hundreds
-  of ULPs off — enough to put several units of noise in a corpus
-  ELBO; see the "accurate float32 transcendentals" section), while
-  f64 falls through to the XLA intrinsics.
+  Cephes-style constructions (see the "accurate float32
+  transcendentals" section), while f64 falls through to the XLA
+  intrinsics.
 
-Everything here is jit-safe and dtype-polymorphic (f32 on TPU,
-f64 for the CPU oracle, mirroring the reference's CPU-f64/GPU-f32
+Everything here is jit-safe and dtype-polymorphic (f32 on the
+accelerator, f64 for the CPU oracle, mirroring the reference's CPU-f64/GPU-f32
 split, LDA.jl:14-21 vs gpuLDA.jl:14-21).
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,25 @@ EPSILON = float(np.spacing(1e-14))  # 1.6033346880071782e-30
 
 # Euler–Mascheroni constant (reference utils.jl:10).
 EULERGAMMA = 0.5772156649015329
+
+
+def highest_precision(fn):
+    """Trace ``fn`` with every f32 contraction at full f32 precision.
+
+    On the GPU an f32 dot at default precision may run in TF32, which
+    keeps about three decimal digits: enough to move the CTM/fCTM PCG
+    solve, the moment updates, the HMTM recurrences and every family's
+    ``phi @ counts`` off the f64 oracles.  The step and ELBO builders
+    wrap what they return in this scope (never set globally); the
+    contractions they hold are batched matvecs and [K, K] products,
+    memory- or latency-bound, so full precision costs them nothing
+    measurable.
+    """
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with jax.default_matmul_precision("highest"):
+            return fn(*args, **kwargs)
+    return wrapped
 
 
 def finite(x: jax.Array) -> jax.Array:
@@ -66,17 +86,15 @@ def logsumexp(x: jax.Array, axis: int | None = None) -> jax.Array:
 
 # ── accurate float32 transcendentals ──────────────────────────────────
 #
-# TPU's VPU evaluates log/exp/lgamma with fast low-precision
-# approximations: measured on the chip, f32 lgamma has mean |err|
-# 1.7e-3 (max 3.7e-2) and log ~1e-4 abs — hundreds of ULPs.  Summed
-# over the thousands of per-token/per-doc terms of a corpus ELBO this
-# is several *units* of bound error, large enough to swamp true
-# ∆ELBO near convergence (a measured −12.7 "decrease" against a true
-# +2.6 at NSF-shaped scale).  The implementations below are classic
-# Cephes-style constructions in pure IEEE f32 arithmetic (~2-3 ULP),
-# cutting ELBO evaluation noise ~50-100×.  f64 inputs fall through to
-# the XLA intrinsics, which are accurate at that width — so the CPU
-# oracle paths are bit-for-bit unchanged.
+# A backend whose fast f32 log/exp/lgamma are hundreds of ULPs off puts
+# several *units* of error into a corpus ELBO (summed over thousands of
+# per-token/per-doc terms) — enough to swamp the true ∆ELBO near
+# convergence.  The implementations below are classic Cephes-style
+# constructions in pure IEEE f32 arithmetic (~2-3 ULP) that do not
+# depend on the backend's intrinsics.  Whether XLA's GPU intrinsics
+# make them unnecessary is not yet measured (ROADMAP 3.4).  f64 inputs
+# fall through to the XLA intrinsics, which are accurate at that width
+# — so the CPU oracle paths are bit-for-bit unchanged.
 
 _LOG2E = 1.4426950408889634
 # ln2 = C1 + C2 with C1's low mantissa bits zero, so n*C1 is exact
@@ -152,20 +170,20 @@ def _adigamma_f32(x: jax.Array) -> jax.Array:
 
 
 def alog(x: jax.Array) -> jax.Array:
-    """log with ~2-ULP accuracy at f32 on TPU (f64: XLA intrinsic)."""
+    """log with ~2-ULP accuracy at f32 (f64: XLA intrinsic)."""
     x = jnp.asarray(x)
     return _alog_f32(x) if x.dtype == jnp.float32 else jnp.log(x)
 
 
 def aexp(x: jax.Array) -> jax.Array:
-    """exp with ~2-ULP accuracy at f32 on TPU (f64: XLA intrinsic)."""
+    """exp with ~2-ULP accuracy at f32 (f64: XLA intrinsic)."""
     x = jnp.asarray(x)
     return _aexp_f32(x) if x.dtype == jnp.float32 else jnp.exp(x)
 
 
 def asoftmax(x: jax.Array, axis: int = -1) -> jax.Array:
     """Max-shifted softmax through :func:`aexp` — the ELBO-path phi
-    recompute (the training step keeps the fast VPU softmax; the
+    recompute (the training step keeps the fast intrinsic softmax; the
     *reported bound* is what needs the extra digits)."""
     m = jnp.max(x, axis=axis, keepdims=True)
     e = aexp(x - m)
@@ -241,8 +259,8 @@ def dirichlet_ones(key: jax.Array, n: int, shape: tuple = (),
     (a flat Dirichlet is normalised iid Gamma(1,1) = Exp(1) variables),
     but one uniform per entry instead of the Marsaglia–Tsang gamma
     rejection sampler, whose per-entry while_loop temporaries make the
-    constructor itself fail to compile at large V (measured on the v5e:
-    K=100, V=2e6 — init dies in the compiler before any step runs).
+    constructor itself fail to compile at large V (K=100, V=2e6 — init
+    died in the compiler before any step ran).
     Used by every model constructor (reference init: LDA.jl:33 et al.).
     """
     e = jax.random.exponential(key, tuple(shape) + (n,), dtype)
@@ -260,7 +278,7 @@ def masked_fixpoint(body, carry: tuple, viter: int) -> tuple:
     still pay full price (gathers, Newtons, token scans) — so this runs
     the same body under a ``while_loop`` that also stops when
     ``~any(active)``.  Exactly trajectory-neutral by the freezing
-    invariant; measured −33% s/iter on HMTM at NSF scale (RESULTS.md).
+    invariant.
 
     Not reverse-differentiable (while_loop) — fine here: E-step outputs
     enter later gradients only as constants (see models/dtm.py's CG).
